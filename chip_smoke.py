@@ -1,16 +1,23 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's per-frame tracking path on one NVIDIA GPU.
+"""Run the PyTorch/CUDA port on one NVIDIA GPU: every kernel against its
+plain version, the per-frame tracking slice, and the monocular System.
 
     python3 chip_smoke.py
 
 Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. Device: requires CUDA; prints the card's name and power limit, and builds
-   the three kernels of the path from `orb_slam3_ros2_tpu_torch/csrc/`.
-2. Kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the tracking path gives it (752x480 over 8 levels; 1000
-   features x 4096 visible landmarks; 1000 pose observations), with each
-   one's median time beside its plain version's.
+   the kernels from `orb_slam3_ros2_tpu_torch/csrc/` (one nvcc per source,
+   all started together).
+2. Kernels: the three tracking-path kernels against their plain PyTorch
+   versions on the card, at the shapes the tracking path gives them
+   (752x480 over 8 levels; 1000 features x 4096 visible landmarks for
+   tracking and x 8192 landmark slots for SearchAndFuse; 1000 pose
+   observations), with each one's median time beside its plain version's.
+2b. Per-level kernels: `fast_nms`, `blur7`, `frontend_pass` and
+   `frontend_pass_lite` on each of the 8 levels of a 752x480 frame's
+   pyramid, against their plain versions at the JAX oracle tests'
+   tolerances, and one call of each timed on level 0.
 3. Slice: renders a 752x480 sequence (EuRoC intrinsics, seed 1), seeds a
    full-size map (256 keyframes, 8192 landmarks, 1000 features) from frame
    0's features and ground-truth depth, and tracks the following frames with
@@ -18,13 +25,21 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    inliers and pose error against ground truth on every frame, that the same
    frames through the plain versions on the card give the same poses, and
    that the kernels' launch counters show the path went through them.
+4. System: `System.track_monocular` from a blank map over 40 rendered
+   752x480 frames (EuRoC cam0 intrinsics; the configuration of
+   `orb_slam3_ros2_tpu_torch/tools/system_run.py`), through the two-view
+   initializer, tracking and keyframe mapping, held to the bounds of
+   `tests/test_e2e_mono.py`; SearchAndFuse must launch the match kernel
+   once per inserted keyframe.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
-per-kernel JSON record. Imports nothing of JAX.
+per-kernel JSON record, and the line before that the card. Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import statistics
@@ -56,7 +71,27 @@ KERNELS = {
                     "orb_slam3_ros2_tpu/ops/fused_match.py:113"),
     "pose_opt_fused": (f"{PKG}/csrc/pose_opt_fused.cu",
                        "orb_slam3_ros2_tpu/backend/pose_opt_fused.py:255"),
+    "fast_nms": (f"{PKG}/csrc/frontend_level.cu",
+                 "orb_slam3_ros2_tpu/ops/pallas_kernels.py:161"),
+    "blur7": (f"{PKG}/csrc/frontend_level.cu",
+              "orb_slam3_ros2_tpu/ops/pallas_kernels.py:182"),
+    "frontend_pass": (f"{PKG}/csrc/frontend_level.cu",
+                      "orb_slam3_ros2_tpu/ops/pallas_kernels.py:340"),
 }
+SOURCES = ("frontend_packed", "fused_match", "pose_opt_fused",
+           "frontend_level")
+
+# phase 2b: the JAX oracle tests' tolerances (tests/test_pallas_kernels.py),
+# on each level's interior (4 px; 16 px for the moment maps)
+LEVEL_SCORE_ATOL = 1e-4
+LEVEL_BLUR_RTOL, LEVEL_BLUR_ATOL = 1e-5, 1e-3
+LEVEL_MOM_RTOL, LEVEL_MOM_ATOL = 2e-4, 2.0
+
+# phase 4: tests/test_e2e_mono.py's bounds; the JAX System on the clip of
+# tools/system_run.py on a CPU: OK, 9 keyframes, 1660 landmarks, 38
+# tracked, ATE 0.0078 / 0.0084 m
+ATE_MAX_M, ATE_RAW_MAX_M = 0.05, 0.12
+MIN_KF, MIN_LM, MIN_TRACKED = 4, 100, 20
 
 
 class PhaseError(RuntimeError):
@@ -157,34 +192,40 @@ def _match_case(rng, N, M, radius):
 
 
 def check_match(dev, record):
+    """Tracking's shape (1000 x 4096 visible landmarks, 15 px) under every
+    ratio/mutual setting, and SearchAndFuse's (1000 x all 8192 landmark
+    slots, 4 px, max_dist 45, no ratio test, not mutual)."""
     import torch
     from orb_slam3_ros2_tpu_torch.ops import fused_match as fm
     from orb_slam3_ros2_tpu_torch.ops import orb_descriptor as desc
 
-    radius = 15.0
-    sa, ma, uva, sb, mb, uvb = _match_case(np.random.default_rng(0), 1000,
-                                           4096, radius)
-
     def t(x):
         return torch.from_numpy(x).to(dev)
 
-    ba = desc.pack_bits(t(sa) > 0)
-    bb = desc.pack_bits(t(sb) > 0)
-    args = (ba, t(ma), t(uva), bb, t(mb), t(uvb), radius)
+    def case(seed, M, radius):
+        sa, ma, uva, sb, mb, uvb = _match_case(np.random.default_rng(seed),
+                                               1000, M, radius)
+        return (desc.pack_bits(t(sa) > 0), t(ma), t(uva),
+                desc.pack_bits(t(sb) > 0), t(mb), t(uvb), radius)
+
+    args = case(0, 4096, 15.0)
+    settings = [(args, dict(ratio=ratio, mutual=mutual))
+                for ratio in (0.9, None) for mutual in (True, False)]
+    settings.append((case(2, 8192, 4.0),
+                     dict(max_dist=45.0, ratio=None, mutual=False)))
     err = 0.0
-    for ratio in (0.9, None):
-        for mutual in (True, False):
-            got = fm.match_window(*args, ratio=ratio, mutual=mutual)
-            ref = fm.match_window_ref(*args, ratio=ratio, mutual=mutual)
-            torch.cuda.synchronize()
-            n_ok = int(ref.valid.sum())
-            require(n_ok > 300, f"match case has only {n_ok} matches")
-            require(bool((got.valid == ref.valid).all())
-                    and bool((got.idx == ref.idx).all()),
-                    f"match idx/valid differ (ratio={ratio}, "
-                    f"mutual={mutual})")
-            v = ref.valid
-            err = max(err, (got.dist[v] - ref.dist[v]).abs().max().item())
+    for a, kw in settings:
+        got = fm.match_window(*a, **kw)
+        ref = fm.match_window_ref(*a, **kw)
+        torch.cuda.synchronize()
+        what = f"M={a[3].shape[0]}, radius {a[6]}, {kw}"
+        n_ok = int(ref.valid.sum())
+        require(n_ok > 300, f"match case {what} has only {n_ok} matches")
+        require(bool((got.valid == ref.valid).all())
+                and bool((got.idx == ref.idx).all()),
+                f"match idx/valid differ ({what})")
+        v = ref.valid
+        err = max(err, (got.dist[v] - ref.dist[v]).abs().max().item())
     require(err == 0.0, f"match distances differ by {err}")
     record["fused_match"] = dict(
         max_abs_err=err,
@@ -235,6 +276,72 @@ def check_pose(dev, record):
         max_abs_err=max(dR, dt),
         ms=time_ms(lambda: pose_opt_fused.optimize_pose_fused(*args)),
         plain_ms=time_ms(lambda: pose_opt.optimize_pose(*args)))
+
+
+# --------------------------------------------------------------- phase 2b
+
+def _interior_err(got, ref, b, rtol, atol, what):
+    """Max |got - ref| on the b-px interior; fails past atol + rtol |ref|."""
+    g, r = got[b:-b, b:-b].float(), ref[b:-b, b:-b].float()
+    d = (g - r).abs()
+    require(bool((d <= atol + rtol * r.abs()).all()),
+            f"{what} differs by {d.max().item()} on the interior")
+    return d.max().item()
+
+
+def check_frontend_level(img, dev, record):
+    """The per-level ops API on every level of the pyramid: the path run
+    (counters from 0), then each output against the plain version."""
+    import torch
+    from orb_slam3_ros2_tpu_torch.ops import frontend_level as fl
+    from orb_slam3_ros2_tpu_torch.ops import orb_descriptor as desc
+    from orb_slam3_ros2_tpu_torch.ops import pyramid as pyr
+
+    levels = pyr.build_pyramid(torch.from_numpy(img).to(dev), 8, 1.2)
+    fns = (fl.fast_nms, fl.blur7, fl.frontend_pass, fl.frontend_pass_lite)
+    for fn in fns:
+        fn.launches = 0
+    outs = [tuple(fn(level) for fn in fns) for level in levels]
+    torch.cuda.synchronize()
+    launches = [fn.launches for fn in fns]
+    print(f"per-level launches over {len(levels)} levels: {launches}")
+    require(launches == [len(levels)] * 4, "a per-level kernel did not run")
+    err = dict(fast_nms=0.0, blur7=0.0, frontend_pass=0.0)
+    B, BM = 4, 16
+    for level, (sk, blur, full, lite) in zip(levels, outs):
+        s_r, k_r = fl.fast_nms_ref(level)
+        b_r = fl.blur7_ref(level)
+        m01_r, m10_r = desc.moment_maps(level)
+        tag = f"level {tuple(level.shape)}"
+        for (score, keep), key in ((sk, "fast_nms"), (full[:2], "frontend_pass"),
+                                   (lite[:2], "frontend_pass")):
+            e = _interior_err(score, s_r, B, 0.0, LEVEL_SCORE_ATOL,
+                              f"{key} score, {tag}")
+            require(bool((keep[B:-B, B:-B] == k_r[B:-B, B:-B]).all()),
+                    f"{key} keep differs, {tag}")
+            err[key] = max(err[key], e)
+        for b, key in ((blur, "blur7"), (full[4], "frontend_pass"),
+                       (lite[2], "frontend_pass")):
+            err[key] = max(err[key], _interior_err(
+                b, b_r, B, LEVEL_BLUR_RTOL, LEVEL_BLUR_ATOL, f"{key} blur, {tag}"))
+        for m, m_r, name in ((full[2], m01_r, "m01"), (full[3], m10_r, "m10")):
+            err["frontend_pass"] = max(err["frontend_pass"], _interior_err(
+                m, m_r, BM, LEVEL_MOM_RTOL, LEVEL_MOM_ATOL, f"{name}, {tag}"))
+    level0 = levels[0]
+    record["fast_nms"] = dict(
+        launches=launches[0], max_abs_err=err["fast_nms"],
+        ms=time_ms(lambda: fl.fast_nms(level0)),
+        plain_ms=time_ms(lambda: fl.fast_nms_ref(level0)))
+    record["blur7"] = dict(
+        launches=launches[1], max_abs_err=err["blur7"],
+        ms=time_ms(lambda: fl.blur7(level0)),
+        plain_ms=time_ms(lambda: fl.blur7_ref(level0)))
+    record["frontend_pass"] = dict(
+        launches=launches[2] + launches[3], max_abs_err=err["frontend_pass"],
+        ms=time_ms(lambda: fl.frontend_pass(level0)),
+        plain_ms=time_ms(lambda: fl.frontend_pass_ref(level0)),
+        lite_ms=time_ms(lambda: fl.frontend_pass_lite(level0)),
+        lite_plain_ms=time_ms(lambda: fl.frontend_pass_lite_ref(level0)))
 
 
 # ---------------------------------------------------------------- phase 3
@@ -398,6 +505,118 @@ def run_slice(dev, record):
     return ms_k, ms_p
 
 
+# ---------------------------------------------------------------- phase 4
+
+def run_system(dev, record):
+    """System.track_monocular from a blank map over the clip of
+    `tools/system_run.py`; `record` receives the run's launch counts.
+    Returns a dict of the results. Every check raises PhaseError."""
+    import torch
+    from orb_slam3_ros2_tpu_torch.backend import pose_opt_fused
+    from orb_slam3_ros2_tpu_torch.frontend import tracking as trk
+    from orb_slam3_ros2_tpu_torch.ops import frontend_packed as fp
+    from orb_slam3_ros2_tpu_torch.ops import fused_match as fm
+    from orb_slam3_ros2_tpu_torch.runtime import system as sysm
+    from orb_slam3_ros2_tpu_torch.tools import system_run as sr
+
+    imgs, R_gt, t_gt, ts = sr.render()
+    slam = sr.make_system(dev)
+    # SearchAndFuse must reach the match kernel: count its launches per call
+    fuse_deltas = []
+    fuse = trk.fuse_map_points
+
+    def counted_fuse(*args, **kwargs):
+        before = fm.match_window.launches
+        out = fuse(*args, **kwargs)
+        fuse_deltas.append(fm.match_window.launches - before)
+        return out
+
+    insert_ms = []
+    insert = slam._insert_keyframe_fused
+
+    def timed_insert(*args, **kwargs):
+        torch.cuda.synchronize()
+        t_ins = time.perf_counter()
+        insert(*args, **kwargs)
+        torch.cuda.synchronize()
+        insert_ms.append((time.perf_counter() - t_ins) * 1e3)
+
+    slam._insert_keyframe_fused = timed_insert
+    counters = (fp.frontend_pass_packed, fm.match_window,
+                pose_opt_fused.optimize_pose_fused)
+    for fn in counters:
+        fn.launches = 0
+    frame_ms, inserted = [], []
+    trk.fuse_map_points = counted_fuse
+    try:
+        for k in range(sr.N_FRAMES):
+            n_kf = int(slam.map.n_kf)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                T = slam.track_monocular(imgs[k], float(ts[k]))
+            except NotImplementedError as e:  # the LOST branch
+                raise PhaseError(f"frame {k}: tracking was lost ({e})")
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            require(T.shape == (4, 4) and np.isfinite(T).all(),
+                    f"frame {k}: non-finite pose")
+            inserted.append(int(slam.map.n_kf) > n_kf
+                            and slam.tracking_log[-1]["state"] == 1 and n_kf > 0)
+    finally:
+        trk.fuse_map_points = fuse
+    launches = dict(zip(("frontend_packed", "fused_match", "pose_opt_fused"),
+                        (fn.launches for fn in counters)))
+    tracked = sr.tracked_frames(slam)
+    init_at = tracked[0] if tracked else None
+    n_kf = int(slam.map.n_kf)
+    n_lm = int(slam.map.lm_valid.sum())
+    require(slam.get_tracking_state() == sysm.TrackingState.OK,
+            f"System ends in state {slam.get_tracking_state().name}")
+    require(len(tracked) > MIN_TRACKED, f"only {len(tracked)} tracked frames")
+    ate = sr.ate(slam, slam.get_frame_trajectory(), R_gt, t_gt)
+    ate_raw = sr.ate(slam, slam.get_trajectory(), R_gt, t_gt)
+    n_ins = sum(inserted)
+    # tracking's own calls: 2 or 3 per tracked frame after the first
+    n_track_calls = launches["fused_match"] - sum(fuse_deltas)
+    plain_ms = [ms for k, ms in enumerate(frame_ms)
+                if k in tracked and k != init_at and not inserted[k]]
+    kf_ms = [ms for k, ms in enumerate(frame_ms) if inserted[k]]
+    out = dict(init_frame=init_at, n_kf=n_kf, n_lm=n_lm,
+               n_tracked=len(tracked), ate_m=ate, ate_raw_m=ate_raw,
+               keyframes_inserted=n_ins, fuse_launches=fuse_deltas,
+               launches=launches,
+               frame_ms=statistics.median(plain_ms) if plain_ms else None,
+               keyframe_frame_ms=statistics.median(kf_ms) if kf_ms else None,
+               insert_ms=statistics.median(insert_ms) if insert_ms else None,
+               init_frame_ms=frame_ms[init_at] if tracked else None)
+    print(f"system: init at frame {init_at}, {n_kf} keyframes "
+          f"({n_ins} inserted after init), {n_lm} landmarks, "
+          f"{len(tracked)} tracked, ATE {ate:.4f} m (raw {ate_raw:.4f} m)")
+    print(f"system: median frame {out['frame_ms']} ms without keyframe, "
+          f"{out['keyframe_frame_ms']} ms with a keyframe insertion "
+          f"(insertion alone {out['insert_ms']} ms), initializing frame "
+          f"{out['init_frame_ms']} ms; launches {launches}, fuse launches "
+          f"{fuse_deltas}")
+    require(n_kf >= MIN_KF, f"only {n_kf} keyframes")
+    require(n_lm > MIN_LM, f"only {n_lm} landmarks")
+    require(ate < ATE_MAX_M, f"ATE {ate:.4f} m >= {ATE_MAX_M}")
+    require(ate_raw < ATE_RAW_MAX_M, f"raw ATE {ate_raw:.4f} m")
+    require(len(fuse_deltas) == n_ins, f"{len(fuse_deltas)} SearchAndFuse "
+            f"calls for {n_ins} keyframe insertions")
+    require(all(d == 1 for d in fuse_deltas),
+            f"SearchAndFuse match kernel launches {fuse_deltas}")
+    require(n_track_calls >= 2 * (len(tracked) - 1),
+            f"{n_track_calls} tracking match launches")
+    require(launches["frontend_packed"] == sr.N_FRAMES,
+            "frontend kernel not on the System path")
+    require(launches["pose_opt_fused"] == 2 * (len(tracked) - 1),
+            "pose kernel not on the System path")
+    for name, n_l in launches.items():
+        record[name]["launches"] = n_l
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -419,14 +638,15 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    for name in KERNELS:
-        t0 = time.perf_counter()
-        cuda_lib.load(name)
-        print(f"built {name} in {time.perf_counter() - t0:.2f} s")
-        log = cuda_lib.build_log.get(name, "")
-        for line in log.splitlines():
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(cuda_lib.load, SOURCES))
+    print(f"built {len(SOURCES)} kernel sources in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name in SOURCES:
+        for line in cuda_lib.build_log.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  {line.strip()}")
+                print(f"  {name}: {line.strip()}")
 
     from orb_slam3_ros2_tpu_torch.io.synthetic import render_sequence
 
@@ -436,17 +656,27 @@ def main() -> int:
     check_frontend(img0, dev, record)
     check_match(dev, record)
     check_pose(dev, record)
+    check_frontend_level(img0, dev, record)
     for name, r in record.items():
         print(f"{name}: max_abs_err {r['max_abs_err']:.3g}, kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
     ms_k, ms_p = run_slice(dev, record)
+    slice_launches = {n: record[n]["launches"] for n in
+                      ("frontend_packed", "fused_match", "pose_opt_fused")}
+    print(f"slice launches: {slice_launches}")
+    system = run_system(dev, record)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=record[name]["launches"],
                     max_abs_err=record[name]["max_abs_err"],
                     ms=record[name]["ms"], plain_ms=record[name]["plain_ms"])
                for name, (src, rep) in KERNELS.items()]
-    print(json.dumps({"frame_step_ms": ms_k, "frame_step_plain_ms": ms_p}))
+    print(json.dumps({"frame_step_ms": ms_k, "frame_step_plain_ms": ms_p,
+                      "slice_launches": slice_launches,
+                      "frontend_pass_lite_ms": record["frontend_pass"]["lite_ms"],
+                      "frontend_pass_lite_plain_ms":
+                          record["frontend_pass"]["lite_plain_ms"],
+                      "system": system}))
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

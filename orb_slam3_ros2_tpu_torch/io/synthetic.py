@@ -2,8 +2,12 @@
 
 numpy-only pieces copied verbatim from `orb_slam3_ros2_tpu/io/synthetic.py`
 (`_so3_exp_np`, `Trajectory`, `default_trajectory`: lines 30-72;
-`_texture`, `render_sequence`: lines 154-251), so that a machine without JAX
-can render the same frames from the same seed. `render_sequence` needs cv2.
+`_texture`, `render_sequence`: lines 154-251; `umeyama_scale`, `ate_rmse`:
+lines 606-645), so that a machine without JAX can render the same frames
+from the same seed and score a trajectory. `render_sequence` needs cv2; its
+optional `cx`/`cy` (default: the image centre, as in the source) is the
+port's only addition, so a camera with an off-centre principal point such as
+EuRoC cam0 can be rendered.
 """
 
 from __future__ import annotations
@@ -80,6 +84,8 @@ def render_sequence(
     traj_scale: float = 1.0,
     stereo_baseline: float = 0.0,
     return_depth: bool = False,
+    cx: float | None = None,
+    cy: float | None = None,
 ):
     """Render a camera flying in front of fronto-parallel textured planes.
 
@@ -92,7 +98,8 @@ def render_sequence(
     """
     import cv2
 
-    cx, cy = width / 2.0, height / 2.0
+    cx = width / 2.0 if cx is None else float(cx)
+    cy = height / 2.0 if cy is None else float(cy)
     K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]])
     traj = default_trajectory(seed=seed + 3, scale=traj_scale)
     ts = np.arange(n_frames) / fps
@@ -156,3 +163,42 @@ def render_sequence(
         return (images, images_r, R_cw.astype(np.float32),
                 t_cw.astype(np.float32), ts)
     return images, R_cw.astype(np.float32), t_cw.astype(np.float32), ts
+
+
+def umeyama_scale(t_est: np.ndarray, t_gt: np.ndarray) -> float:
+    """Sim3 Umeyama scale mapping est -> gt: the MOTION-WEIGHTED metric
+    scale of a trajectory. Unlike the per-chunk length-ratio statistic it
+    is dominated by the trajectory's actual spatial extent, so chunks with
+    near-zero groundtruth motion cannot blow it up."""
+    est = np.asarray(t_est, np.float64)
+    gt = np.asarray(t_gt, np.float64)
+    e = est - est.mean(0)
+    g = gt - gt.mean(0)
+    U, D, Vt = np.linalg.svd(g.T @ e / len(e))
+    S = np.eye(3)
+    if np.linalg.det(U @ Vt) < 0:
+        S[2, 2] = -1
+    var_e = (e * e).sum() / len(e)
+    return float(np.trace(np.diag(D) @ S) / max(var_e, 1e-12))
+
+
+def ate_rmse(t_est: np.ndarray, t_gt: np.ndarray, align: bool = True) -> float:
+    """Absolute trajectory error RMSE after (optional) Sim3 Umeyama alignment.
+
+    Standard EuRoC evaluation protocol."""
+    est = np.asarray(t_est, np.float64)
+    gt = np.asarray(t_gt, np.float64)
+    if align:
+        mu_e, mu_g = est.mean(0), gt.mean(0)
+        e, g = est - mu_e, gt - mu_g
+        U, D, Vt = np.linalg.svd(g.T @ e / len(e))
+        S = np.eye(3)
+        if np.linalg.det(U @ Vt) < 0:
+            S[2, 2] = -1
+        R = U @ S @ Vt
+        var_e = (e * e).sum() / len(e)
+        s = np.trace(np.diag(D) @ S) / max(var_e, 1e-12)
+        est = s * (R @ e.T).T + mu_g
+        gt = g + mu_g
+    err = est - gt
+    return float(np.sqrt((err * err).sum(-1).mean()))

@@ -79,6 +79,49 @@ def orientations(patches: torch.Tensor) -> torch.Tensor:
     return torch.atan2(m[:, 0], m[:, 1])
 
 
+def moment_maps(img: torch.Tensor):
+    """Full-image IC moments: (m01, m10) of the radius-15 disc at every
+    pixel, from two row cumsums and 31 shifted-difference adds.
+
+    Port of `orb_slam3_ros2_tpu/ops/orb_descriptor.py:185` (same padding:
+    zero rows above and below, edge columns beside). Per disc row dy the
+    mask covers |dx| <= u(dy) = floor(sqrt(R² − dy²)), so the row's
+    contribution is a prefix-sum difference. The prefix sums and the adds
+    run in float64: the x-weighted prefix sum of a 752-wide row reaches
+    ~7e7, where float32 rounding alone would exceed the moments' tolerance
+    (rtol 2e-4, atol 2) at full width. Exact on the interior (>= 15 px from
+    the border); returns float32 maps."""
+    H, W = img.shape
+    R = ORI_RADIUS
+    x = img.to(torch.float64)
+    xs = torch.arange(W, dtype=torch.float64, device=img.device)
+
+    def prefix(v):
+        # leading zero column, R zero rows each side, then R edge columns
+        # left and R + 1 right so x ± u(dy) indexing stays in bounds
+        P = torch.nn.functional.pad(torch.cumsum(v, dim=1), (1, 0, R, R))
+        return torch.cat([P[:, :1].expand(-1, R), P,
+                          P[:, -1:].expand(-1, R + 1)], dim=1)
+
+    S = prefix(x)
+    C = prefix(x * xs[None, :])
+    x0 = R  # column offset of image x=0 in the padded prefix arrays
+    m01 = torch.zeros((H, W), dtype=torch.float64, device=img.device)
+    msum = torch.zeros_like(m01)
+    mxw = torch.zeros_like(m01)
+    for dy in range(-R, R + 1):
+        u = int(np.floor(np.sqrt(R * R - dy * dy)))
+        rows = slice(R + dy, R + dy + H)
+        hi = slice(x0 + u + 1, x0 + u + 1 + W)
+        lo = slice(x0 - u, x0 - u + W)
+        rs = S[rows, hi] - S[rows, lo]
+        m01 = m01 + dy * rs
+        msum = msum + rs
+        mxw = mxw + (C[rows, hi] - C[rows, lo])
+    m10 = mxw - msum * xs[None, :]
+    return m01.to(torch.float32), m10.to(torch.float32)
+
+
 def _bilinear_sample(flat: torch.Tensor, y: torch.Tensor, x: torch.Tensor):
     """Bilinear samples of flattened (N, P*P) patches at (N, S) coords."""
     y = (y + PATCH_R).clamp(0.0, PATCH - 1.001)

@@ -14,9 +14,10 @@ from orb_slam3_ros2_tpu_torch.ops import matcher as tm
 from orb_slam3_ros2_tpu_torch.ops import orb_descriptor as tdesc
 
 
-def _match_case(seed=0, N=300, M=700):
+def _match_case(seed=0, N=300, M=700, spread=5.0):
     """tests/test_fused_kernels.py's case: random ±1 descriptors, planted
-    near-duplicates inside the window and an exact-duplicate landmark pair."""
+    near-duplicates within `spread` px and an exact-duplicate landmark
+    pair."""
     rng = np.random.default_rng(seed)
     sa = np.where(rng.integers(0, 2, (N, 256)), 1.0, -1.0).astype(np.float32)
     sb = np.where(rng.integers(0, 2, (M, 256)), 1.0, -1.0).astype(np.float32)
@@ -29,7 +30,7 @@ def _match_case(seed=0, N=300, M=700):
         sb[j] = sa[i]
         flips = rng.choice(256, size=rng.integers(0, 8), replace=False)
         sb[j, flips] *= -1.0
-        uvb[j] = uva[i] + rng.uniform(-5, 5, 2)
+        uvb[j] = uva[i] + rng.uniform(-spread, spread, 2)
         ma[i] = mb[j] = True
     sb[M - 1] = sb[M - 2] = sa[7]
     uvb[M - 1] = uvb[M - 2] = uva[7]
@@ -86,6 +87,29 @@ def test_match_window_matches_jax(ratio, mutual):
                                       np.asarray(ref.dist)[v])
 
 
+# SearchAndFuse's call: every landmark slot of the map, a 4-px window,
+# max_dist 45, no ratio test, not mutual (frontend/tracking.py)
+FUSE = dict(radius=4.0, max_dist=45.0, ratio=None, mutual=False)
+
+
+def test_match_window_at_fuse_settings_matches_jax():
+    """Port match_window (plain on CPU) vs the JAX dense matcher, 8192
+    landmark slots: idx, valid and dist exact."""
+    sa, ma, uva, sb, mb, uvb = _match_case(seed=4, N=200, M=8192, spread=3.0)
+    got = tfm.match_window(_bits(sa), torch.from_numpy(ma),
+                           torch.from_numpy(uva), _bits(sb),
+                           torch.from_numpy(mb), torch.from_numpy(uvb), **FUSE)
+    j = [jnp.asarray(a) for a in (sa, ma, uva, sb, mb, uvb)]
+    ref = jm.match(j[0], j[1], j[3], j[4], max_dist=FUSE["max_dist"],
+                   ratio=None, gate=jm.window_gate(j[2], j[5], FUSE["radius"]),
+                   mutual=False)
+    assert int(ref.valid.sum()) > 20
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
+    np.testing.assert_array_equal(got.idx.numpy(), np.asarray(ref.idx))
+    v = np.asarray(ref.valid)
+    np.testing.assert_array_equal(got.dist.numpy()[v], np.asarray(ref.dist)[v])
+
+
 def test_match_window_nonmultiple_shapes():
     sa, ma, uva, sb, mb, uvb = _match_case(seed=3, N=77, M=131)
     got = tfm.match_window(_bits(sa), torch.from_numpy(ma),
@@ -136,20 +160,26 @@ def test_match_rotation_check_matches_jax():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ratio,mutual", [(0.9, True), (None, False)])
-def test_match_kernel_matches_plain_on_gpu(cuda_device, ratio, mutual):
-    sa, ma, uva, sb, mb, uvb = _match_case(seed=1, N=1000, M=4096)
+@pytest.mark.parametrize("M,kw", [
+    (4096, dict(radius=15.0, ratio=0.9, mutual=True)),  # tracking
+    (4096, dict(radius=15.0, ratio=None, mutual=False)),
+    (8192, FUSE)])  # SearchAndFuse: every landmark slot of the map
+def test_match_kernel_matches_plain_on_gpu(cuda_device, M, kw):
+    sa, ma, uva, sb, mb, uvb = _match_case(seed=1, N=1000, M=M, spread=3.0)
     args = [_bits(sa), torch.from_numpy(ma), torch.from_numpy(uva),
             _bits(sb), torch.from_numpy(mb), torch.from_numpy(uvb)]
     args = [a.to(cuda_device) for a in args]
     n = tfm.match_window.launches
-    got = tfm.match_window(*args, radius=15.0, ratio=ratio, mutual=mutual)
-    ref = tfm.match_window_ref(*args, radius=15.0, ratio=ratio,
-                               mutual=mutual)
+    got = tfm.match_window(*args, **kw)
+    ref = tfm.match_window_ref(*args, **kw)
     assert tfm.match_window.launches == n + 1
+    assert int(ref.valid.sum()) > 20
     np.testing.assert_array_equal(got.idx.cpu().numpy(), ref.idx.cpu().numpy())
     np.testing.assert_array_equal(got.valid.cpu().numpy(),
                                   ref.valid.cpu().numpy())
+    v = ref.valid
+    np.testing.assert_array_equal(got.dist[v].cpu().numpy(),
+                                  ref.dist[v].cpu().numpy())
 
 
 def test_match_wrapper_raises_off_cpu_without_a_kernel():

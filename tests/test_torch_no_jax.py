@@ -1,6 +1,7 @@
 """The port runs where JAX is absent: in a fresh interpreter whose `jax`
-import fails, every module of `orb_slam3_ros2_tpu_torch` imports and
-`frame_step` tracks a small image on the CPU."""
+import fails, every module of `orb_slam3_ros2_tpu_torch` imports,
+`frame_step` tracks a small image on the CPU, and `System.track_monocular`
+takes two frames (the second one runs the matcher and the initializer)."""
 
 import subprocess
 import sys
@@ -46,6 +47,39 @@ m2, f_u, obs, R1, t1, s = system.frame_step(m, R, t, R, t, img, cam, cfg)
 assert s.shape == (16,) and torch.isfinite(s).all()
 assert int(s[13]) >= 15, s
 assert float((t1 - t).abs().max()) < 1e-3
+
+import os, tempfile
+from orb_slam3_ros2_tpu_torch.backend import ba, schur
+from orb_slam3_ros2_tpu_torch.frontend import initializer
+from orb_slam3_ros2_tpu_torch.io.synthetic import render_sequence
+from orb_slam3_ros2_tpu_torch.ops import frontend_level
+from orb_slam3_ros2_tpu_torch.runtime.system import System, TrackingState
+
+SW, SH, SF = 320, 240, 260.0
+imgs, _, _, ts = render_sequence(n_frames=3, width=SW, height=SH, fx=SF,
+                                 fy=SF, fps=10.0, seed=1)
+cfg_path = os.path.join(tempfile.mkdtemp(), "cam.yaml")
+with open(cfg_path, "w") as fh:
+    fh.write("%YAML:1.0\nCamera.type: \"Rectified\"\n"
+             f"Camera1.fx: {SF}\nCamera1.fy: {SF}\nCamera1.cx: {SW / 2}\n"
+             f"Camera1.cy: {SH / 2}\nCamera.width: {SW}\n"
+             f"Camera.height: {SH}\nCamera.fps: 10\n"
+             "ORBextractor.nFeatures: 400\nORBextractor.nLevels: 3\n"
+             "loopClosing: 0\n")
+init_calls = []
+init_fn = initializer.initialize
+initializer.initialize = lambda *a, **kw: init_calls.append(1) or init_fn(
+    *a, **kw)
+slam = System(None, cfg_path, device="cpu")
+for k in (0, 2):
+    T = slam.track_monocular(imgs[k], float(ts[k]))
+    assert T.shape == (4, 4) and np.isfinite(T).all()
+assert slam.n_frames == 2 and init_calls == [1], init_calls
+assert slam.get_tracking_state() in (TrackingState.NOT_INITIALIZED,
+                                     TrackingState.OK)
+assert not any(k in ("jax", "orb_slam3_ros2_tpu")
+               or k.startswith(("jax.", "orb_slam3_ros2_tpu."))
+               for k, v in sys.modules.items() if v is not None)
 print("ok", len(names), int(s[13]))
 """
 
