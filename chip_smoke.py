@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port on one NVIDIA GPU: every kernel against its
-plain version, the per-frame tracking slice, and the monocular System.
+plain version, the per-frame tracking slice, and the System in its
+monocular, stereo, RGB-D and fisheye-stereo configurations.
 
     python3 chip_smoke.py
 
@@ -13,7 +14,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    versions on the card, at the shapes the tracking path gives them
    (752x480 over 8 levels; 1000 features x 4096 visible landmarks for
    tracking and x 8192 landmark slots for SearchAndFuse; 1000 pose
-   observations), with each one's median time beside its plain version's.
+   observations), with each one's median time beside its plain version's;
+   then again at the stereo and RGB-D paths' shapes: the 8-level pyramids
+   of a 1241x376 (KITTI) and a 512x512 (TUM-VI) frame, 2000 features x 4096
+   visible landmarks at 15 px and x 8192 slots at 4 px (max_dist 45, no
+   ratio, not mutual), and 2000 pose observations.
 2b. Per-level kernels: `fast_nms`, `blur7`, `frontend_pass` and
    `frontend_pass_lite` on each of the 8 levels of a 752x480 frame's
    pyramid, against their plain versions at the JAX oracle tests'
@@ -31,10 +36,28 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    initializer, tracking and keyframe mapping, held to the bounds of
    `tests/test_e2e_mono.py`; SearchAndFuse must launch the match kernel
    once per inserted keyframe.
+5. Stereo: `System.track_stereo` from a blank map over 30 rendered
+   1241x376 pairs of the textured room at KITTI00-02's calibration and
+   2000 features
+   (`kitti_stereo` of `tools/system_run.py`), held to the bounds of
+   `tests/test_e2e_stereo.py`: state OK, more than 15 tracked frames,
+   Sim3-aligned ATE under 0.08 m, unaligned length within 12%.
+6. RGB-D: `System.track_rgbd` over 30 rendered 640x480 image + depth frames
+   at TUM1's intrinsics (`tum1_rgbd`), held to `tests/test_e2e_rgbd.py`'s
+   bounds (the length within 10%).
+7. Fisheye stereo: `System.track_stereo` over 22 rendered 512x512 KB8 pairs
+   of TUM-VI's two cameras through the general two-view rig
+   (`tumvi_stereo`), held to `tests/test_e2e_fisheye.py`'s stereo bounds:
+   at least n - 8 tracked, ATE under 0.10 m, length within 10%.
+   Phases 5-7 also require each kernel on the path: the frontend kernel
+   once per image, the pose kernel twice per tracked frame after the
+   initializing one, the match kernel once per SearchAndFuse.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
-per-kernel JSON record, and the line before that the card. Imports nothing
-of JAX.
+per-kernel JSON record (`launches`: the sum over the runs of phases 3-7,
+each counted from 0 around its run; the per-level kernels: phase 2b), the
+line before that the card, and the one before that the phases' results.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -93,6 +116,12 @@ LEVEL_MOM_RTOL, LEVEL_MOM_ATOL = 2e-4, 2.0
 ATE_MAX_M, ATE_RAW_MAX_M = 0.05, 0.12
 MIN_KF, MIN_LM, MIN_TRACKED = 4, 100, 20
 
+# phases 5-7: the rig configurations of tools/system_run.py; their bounds
+# are those of the JAX e2e tests (`system_run.RIGS`). The JAX System on the
+# same clips on a CPU: OK, 30/30/22 tracked, ATE 0.0125 / 0.0053 / 0.0158 m,
+# length ratio 1.0054 / 0.9966 / 0.9274 (PERF.md §4)
+RIG_PHASES = ("kitti_stereo", "tum1_rgbd", "tumvi_stereo")
+
 
 class PhaseError(RuntimeError):
     pass
@@ -133,7 +162,9 @@ def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
 
 # ---------------------------------------------------------------- phase 2
 
-def check_frontend(img, dev, record):
+def check_frontend(img, dev):
+    """The packed frontend on img's 8-level pyramid against its plain
+    version; returns max_abs_err and both times."""
     import torch
     from orb_slam3_ros2_tpu_torch.ops import frontend_packed as fp
     from orb_slam3_ros2_tpu_torch.ops import pyramid as pyr
@@ -143,7 +174,7 @@ def check_frontend(img, dev, record):
     s_r, k_r, b_r, r_r, lay_r = fp.frontend_pass_packed_ref(levels)
     torch.cuda.synchronize()
     _, total = fp.pack_layout([tuple(l.shape) for l in levels])
-    require(layout == lay_r and tuple(score.shape) == (total, WIDTH),
+    require(layout == lay_r and tuple(score.shape) == (total, img.shape[1]),
             f"frontend layout {layout}, canvas {tuple(score.shape)}")
     B = 4
     err = 0.0
@@ -163,10 +194,9 @@ def check_frontend(img, dev, record):
         gap = slice(r0 + h, r0 + h + fp.PACK_GAP)
         require(bool((score[gap] == 0).all()) and not bool(keep[gap].any()),
                 "frontend gap rows are not zero")
-    record["frontend_packed"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: fp.frontend_pass_packed(levels)),
-        plain_ms=time_ms(lambda: fp.frontend_pass_packed_ref(levels)))
+    return dict(max_abs_err=err,
+                ms=time_ms(lambda: fp.frontend_pass_packed(levels)),
+                plain_ms=time_ms(lambda: fp.frontend_pass_packed_ref(levels)))
 
 
 def _match_case(rng, N, M, radius):
@@ -191,10 +221,12 @@ def _match_case(rng, N, M, radius):
     return sa, ma, uva, sb, mb, uvb
 
 
-def check_match(dev, record):
-    """Tracking's shape (1000 x 4096 visible landmarks, 15 px) under every
-    ratio/mutual setting, and SearchAndFuse's (1000 x all 8192 landmark
-    slots, 4 px, max_dist 45, no ratio test, not mutual)."""
+def check_match(dev, N=1000):
+    """Tracking's shape (N x 4096 visible landmarks, 15 px) under every
+    ratio/mutual setting (N = 1000; at N = 2000 the default ratio 0.9,
+    mutual), and SearchAndFuse's (N x all 8192 landmark slots, 4 px,
+    max_dist 45, no ratio test, not mutual). Returns max_abs_err and the
+    times of the tracking call and of the SearchAndFuse call."""
     import torch
     from orb_slam3_ros2_tpu_torch.ops import fused_match as fm
     from orb_slam3_ros2_tpu_torch.ops import orb_descriptor as desc
@@ -204,15 +236,17 @@ def check_match(dev, record):
 
     def case(seed, M, radius):
         sa, ma, uva, sb, mb, uvb = _match_case(np.random.default_rng(seed),
-                                               1000, M, radius)
+                                               N, M, radius)
         return (desc.pack_bits(t(sa) > 0), t(ma), t(uva),
                 desc.pack_bits(t(sb) > 0), t(mb), t(uvb), radius)
 
-    args = case(0, 4096, 15.0)
+    args = case(0 if N == 1000 else 4, 4096, 15.0)
     settings = [(args, dict(ratio=ratio, mutual=mutual))
-                for ratio in (0.9, None) for mutual in (True, False)]
-    settings.append((case(2, 8192, 4.0),
-                     dict(max_dist=45.0, ratio=None, mutual=False)))
+                for ratio in (0.9, None) for mutual in (True, False)
+                if N == 1000 or (ratio, mutual) == (0.9, True)]
+    fuse_args = case(2 if N == 1000 else 5, 8192, 4.0)
+    fuse_kw = dict(max_dist=45.0, ratio=None, mutual=False)
+    settings.append((fuse_args, fuse_kw))
     err = 0.0
     for a, kw in settings:
         got = fm.match_window(*a, **kw)
@@ -227,19 +261,23 @@ def check_match(dev, record):
         v = ref.valid
         err = max(err, (got.dist[v] - ref.dist[v]).abs().max().item())
     require(err == 0.0, f"match distances differ by {err}")
-    record["fused_match"] = dict(
+    return dict(
         max_abs_err=err,
         ms=time_ms(lambda: fm.match_window(*args)),
-        plain_ms=time_ms(lambda: fm.match_window_ref(*args)))
+        plain_ms=time_ms(lambda: fm.match_window_ref(*args)),
+        fuse_ms=time_ms(lambda: fm.match_window(*fuse_args, **fuse_kw)),
+        fuse_plain_ms=time_ms(
+            lambda: fm.match_window_ref(*fuse_args, **fuse_kw)))
 
 
-def check_pose(dev, record):
+def check_pose(dev, N=1000):
+    """The pose kernel on N observations (30% outliers) against its plain
+    version and the true pose; returns max_abs_err and both times."""
     import torch
     from orb_slam3_ros2_tpu_torch.backend import pose_opt, pose_opt_fused
     from orb_slam3_ros2_tpu_torch.geom import lie
 
-    rng = np.random.default_rng(1)
-    N = 1000
+    rng = np.random.default_rng(1 if N == 1000 else N)
     X = np.stack([rng.uniform(-4, 4, N), rng.uniform(-3, 3, N),
                   rng.uniform(4, 10, N)], -1).astype(np.float32)
     fx = fy = 400.0
@@ -272,7 +310,7 @@ def check_pose(dev, record):
     require(np.abs(got.R.cpu().numpy() - R_true).max() < 2e-3
             and np.abs(got.t.cpu().numpy() - t_true).max() < 1e-2,
             "pose kernel did not converge to the true pose")
-    record["pose_opt_fused"] = dict(
+    return dict(
         max_abs_err=max(dR, dt),
         ms=time_ms(lambda: pose_opt_fused.optimize_pose_fused(*args)),
         plain_ms=time_ms(lambda: pose_opt.optimize_pose(*args)))
@@ -500,18 +538,29 @@ def run_slice(dev, record):
     ms_p = statistics.median(r[3] for r in plain)
     print(f"frame_step median: {ms_k:.3f} ms (kernels), "
           f"{ms_p:.3f} ms (plain versions)")
-    for name, n_l in launches.items():
-        record[name]["launches"] = n_l
+    add_launches(record, launches)
     return ms_k, ms_p
 
 
-# ---------------------------------------------------------------- phase 4
+def add_launches(record, launches):
+    """Add one main-path run's launch counts to the kernels' records."""
+    for name, n_l in launches.items():
+        record[name]["launches"] = record[name].get("launches", 0) + n_l
 
-def run_system(dev, record):
-    """System.track_monocular from a blank map over the clip of
-    `tools/system_run.py`; `record` receives the run's launch counts.
-    Returns a dict of the results. Every check raises PhaseError."""
+
+# ------------------------------------------------------------ phases 4-7
+
+def drive(slam, step, n_frames: int, label: str) -> dict:
+    """Feed frames 0..n_frames-1 to `step(k)` (one entry-point call) from a
+    blank map, with every kernel's launch counter from 0, a host clock
+    around each frame and each keyframe insertion (ending in a device
+    synchronize), and SearchAndFuse's match-kernel launches and
+    `compact_landmarks`' calls recorded. Prints and returns the run's
+    counts and times; raises PhaseError unless the System ends tracking and
+    the match and pose kernels ran on every tracked frame and SearchAndFuse
+    once per inserted keyframe."""
     import torch
+    from orb_slam3_ros2_tpu_torch.atlas import map_state as ms
     from orb_slam3_ros2_tpu_torch.backend import pose_opt_fused
     from orb_slam3_ros2_tpu_torch.frontend import tracking as trk
     from orb_slam3_ros2_tpu_torch.ops import frontend_packed as fp
@@ -519,11 +568,8 @@ def run_system(dev, record):
     from orb_slam3_ros2_tpu_torch.runtime import system as sysm
     from orb_slam3_ros2_tpu_torch.tools import system_run as sr
 
-    imgs, R_gt, t_gt, ts = sr.render()
-    slam = sr.make_system(dev)
-    # SearchAndFuse must reach the match kernel: count its launches per call
-    fuse_deltas = []
-    fuse = trk.fuse_map_points
+    fuse_deltas, compactions, insert_ms = [], [], []
+    fuse, compact = trk.fuse_map_points, ms.compact_landmarks
 
     def counted_fuse(*args, **kwargs):
         before = fm.match_window.launches
@@ -531,7 +577,10 @@ def run_system(dev, record):
         fuse_deltas.append(fm.match_window.launches - before)
         return out
 
-    insert_ms = []
+    def counted_compact(m):
+        compactions.append(int(m.n_lm))
+        return compact(m)
+
     insert = slam._insert_keyframe_fused
 
     def timed_insert(*args, **kwargs):
@@ -547,73 +596,123 @@ def run_system(dev, record):
     for fn in counters:
         fn.launches = 0
     frame_ms, inserted = [], []
-    trk.fuse_map_points = counted_fuse
+    trk.fuse_map_points, ms.compact_landmarks = counted_fuse, counted_compact
     try:
-        for k in range(sr.N_FRAMES):
+        for k in range(n_frames):
             n_kf = int(slam.map.n_kf)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             try:
-                T = slam.track_monocular(imgs[k], float(ts[k]))
+                T = step(k)
             except NotImplementedError as e:  # the LOST branch
-                raise PhaseError(f"frame {k}: tracking was lost ({e})")
+                raise PhaseError(f"{label} frame {k}: tracking was lost ({e})")
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - t0) * 1e3)
             require(T.shape == (4, 4) and np.isfinite(T).all(),
-                    f"frame {k}: non-finite pose")
-            inserted.append(int(slam.map.n_kf) > n_kf
-                            and slam.tracking_log[-1]["state"] == 1 and n_kf > 0)
+                    f"{label} frame {k}: non-finite pose")
+            inserted.append(n_kf > 0 and int(slam.map.n_kf) > n_kf)
     finally:
-        trk.fuse_map_points = fuse
+        trk.fuse_map_points, ms.compact_landmarks = fuse, compact
     launches = dict(zip(("frontend_packed", "fused_match", "pose_opt_fused"),
                         (fn.launches for fn in counters)))
     tracked = sr.tracked_frames(slam)
     init_at = tracked[0] if tracked else None
-    n_kf = int(slam.map.n_kf)
-    n_lm = int(slam.map.lm_valid.sum())
-    require(slam.get_tracking_state() == sysm.TrackingState.OK,
-            f"System ends in state {slam.get_tracking_state().name}")
-    require(len(tracked) > MIN_TRACKED, f"only {len(tracked)} tracked frames")
-    ate = sr.ate(slam, slam.get_frame_trajectory(), R_gt, t_gt)
-    ate_raw = sr.ate(slam, slam.get_trajectory(), R_gt, t_gt)
-    n_ins = sum(inserted)
-    # tracking's own calls: 2 or 3 per tracked frame after the first
-    n_track_calls = launches["fused_match"] - sum(fuse_deltas)
-    plain_ms = [ms for k, ms in enumerate(frame_ms)
+    plain_ms = [t for k, t in enumerate(frame_ms)
                 if k in tracked and k != init_at and not inserted[k]]
-    kf_ms = [ms for k, ms in enumerate(frame_ms) if inserted[k]]
-    out = dict(init_frame=init_at, n_kf=n_kf, n_lm=n_lm,
-               n_tracked=len(tracked), ate_m=ate, ate_raw_m=ate_raw,
-               keyframes_inserted=n_ins, fuse_launches=fuse_deltas,
-               launches=launches,
-               frame_ms=statistics.median(plain_ms) if plain_ms else None,
-               keyframe_frame_ms=statistics.median(kf_ms) if kf_ms else None,
-               insert_ms=statistics.median(insert_ms) if insert_ms else None,
-               init_frame_ms=frame_ms[init_at] if tracked else None)
-    print(f"system: init at frame {init_at}, {n_kf} keyframes "
-          f"({n_ins} inserted after init), {n_lm} landmarks, "
-          f"{len(tracked)} tracked, ATE {ate:.4f} m (raw {ate_raw:.4f} m)")
-    print(f"system: median frame {out['frame_ms']} ms without keyframe, "
+    kf_ms = [t for k, t in enumerate(frame_ms) if inserted[k]]
+    n_ins = sum(inserted)
+    out = dict(
+        init_frame=init_at, n_kf=int(slam.map.n_kf),
+        n_lm=int(slam.map.lm_valid.sum()), lm_slots_used=int(slam.map.n_lm),
+        n_tracked=len(tracked), keyframes_inserted=n_ins,
+        compactions=compactions, fuse_launches=fuse_deltas,
+        launches=launches,
+        frame_ms=statistics.median(plain_ms) if plain_ms else None,
+        keyframe_frame_ms=statistics.median(kf_ms) if kf_ms else None,
+        insert_ms=statistics.median(insert_ms) if insert_ms else None,
+        init_frame_ms=frame_ms[init_at] if tracked else None)
+    print(f"{label}: init at frame {init_at}, {out['n_kf']} keyframes "
+          f"({n_ins} inserted after init), {out['n_lm']} landmarks "
+          f"({out['lm_slots_used']} slots used, compact_landmarks ran "
+          f"{len(compactions)} times), {len(tracked)} tracked")
+    print(f"{label}: median frame {out['frame_ms']} ms without keyframe, "
           f"{out['keyframe_frame_ms']} ms with a keyframe insertion "
           f"(insertion alone {out['insert_ms']} ms), initializing frame "
           f"{out['init_frame_ms']} ms; launches {launches}, fuse launches "
           f"{fuse_deltas}")
-    require(n_kf >= MIN_KF, f"only {n_kf} keyframes")
-    require(n_lm > MIN_LM, f"only {n_lm} landmarks")
+    require(slam.get_tracking_state() == sysm.TrackingState.OK,
+            f"{label}: System ends in state {slam.get_tracking_state().name}")
+    require(n_ins >= 1 and len(fuse_deltas) == n_ins
+            and all(d == 1 for d in fuse_deltas),
+            f"{label}: SearchAndFuse match kernel launches {fuse_deltas} for "
+            f"{n_ins} keyframe insertions")
+    # tracking's own calls: 2 or 3 per tracked frame after the first
+    n_track_calls = launches["fused_match"] - sum(fuse_deltas)
+    require(n_track_calls >= 2 * (len(tracked) - 1),
+            f"{label}: {n_track_calls} tracking match launches")
+    require(launches["pose_opt_fused"] == 2 * (len(tracked) - 1),
+            f"{label}: pose kernel launched {launches['pose_opt_fused']} "
+            f"times for {len(tracked)} tracked frames")
+    return out
+
+
+def run_system(dev, record):
+    """System.track_monocular from a blank map over the clip of
+    `tools/system_run.py`; `record` receives the run's launch counts.
+    Returns a dict of the results. Every check raises PhaseError."""
+    from orb_slam3_ros2_tpu_torch.tools import system_run as sr
+
+    imgs, R_gt, t_gt, ts = sr.render()
+    slam = sr.make_system(dev)
+    out = drive(slam, lambda k: slam.track_monocular(imgs[k], float(ts[k])),
+                sr.N_FRAMES, "system")
+    ate = sr.ate(slam, slam.get_frame_trajectory(), R_gt, t_gt)
+    ate_raw = sr.ate(slam, slam.get_trajectory(), R_gt, t_gt)
+    out.update(ate_m=ate, ate_raw_m=ate_raw)
+    print(f"system: ATE {ate:.4f} m (raw {ate_raw:.4f} m)")
+    require(out["n_tracked"] > MIN_TRACKED,
+            f"only {out['n_tracked']} tracked frames")
+    require(out["n_kf"] >= MIN_KF, f"only {out['n_kf']} keyframes")
+    require(out["n_lm"] > MIN_LM, f"only {out['n_lm']} landmarks")
     require(ate < ATE_MAX_M, f"ATE {ate:.4f} m >= {ATE_MAX_M}")
     require(ate_raw < ATE_RAW_MAX_M, f"raw ATE {ate_raw:.4f} m")
-    require(len(fuse_deltas) == n_ins, f"{len(fuse_deltas)} SearchAndFuse "
-            f"calls for {n_ins} keyframe insertions")
-    require(all(d == 1 for d in fuse_deltas),
-            f"SearchAndFuse match kernel launches {fuse_deltas}")
-    require(n_track_calls >= 2 * (len(tracked) - 1),
-            f"{n_track_calls} tracking match launches")
-    require(launches["frontend_packed"] == sr.N_FRAMES,
+    require(out["launches"]["frontend_packed"] == sr.N_FRAMES,
             "frontend kernel not on the System path")
-    require(launches["pose_opt_fused"] == 2 * (len(tracked) - 1),
-            "pose kernel not on the System path")
-    for name, n_l in launches.items():
-        record[name]["launches"] = n_l
+    add_launches(record, out["launches"])
+    return out
+
+
+def run_rig(dev, name, frames, record):
+    """`track_stereo` / `track_rgbd` from a blank map over `frames`, the
+    clip of the `tools/system_run.py` rig `name`, held to the bounds of the
+    JAX e2e test it mirrors; `record` receives the run's launch counts.
+    Returns a dict of the results. Every check raises PhaseError."""
+    from orb_slam3_ros2_tpu_torch.runtime import system as sysm
+    from orb_slam3_ros2_tpu_torch.tools import system_run as sr
+
+    rig = sr.RIGS[name]
+    slam = sr.make_rig_system(rig, dev)
+    out = dict(config=name, source=rig.source, frames=rig.n_frames,
+               width=slam.cam.width, height=slam.cam.height,
+               n_features=slam.ex_cfg.n_features)
+    out.update(drive(slam, lambda k: sr.track_rig(slam, rig, frames, k),
+                     rig.n_frames, name))
+    metrics = sr.rig_metrics(slam, frames[2], frames[3])
+    out.update(metrics)
+    print(f"{name}: ATE {metrics['ate_m']} m, length ratio "
+          f"{metrics['length_ratio']}")
+    require(metrics["n_tracked"] > rig.min_tracked,
+            f"{name}: only {metrics['n_tracked']} tracked frames")
+    require(metrics["ate_m"] < rig.ate_max_m,
+            f"{name}: ATE {metrics['ate_m']} m >= {rig.ate_max_m}")
+    require(abs(metrics["length_ratio"] - 1.0) < rig.length_tol,
+            f"{name}: length ratio {metrics['length_ratio']}")
+    per_frame = 1 if rig.sensor == sysm.Sensor.RGBD else 2
+    launches = out["launches"]
+    require(launches["frontend_packed"] == per_frame * rig.n_frames,
+            f"{name}: frontend kernel launched {launches['frontend_packed']}"
+            f" times for {rig.n_frames} frames")
+    add_launches(record, launches)
     return out
 
 
@@ -649,22 +748,46 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     from orb_slam3_ros2_tpu_torch.io.synthetic import render_sequence
+    from orb_slam3_ros2_tpu_torch.tools import system_run as sr
 
-    record = {}
     img0 = render_sequence(n_frames=1, width=WIDTH, height=HEIGHT, fx=FX,
                            fy=FY, seed=1)[0][0]
-    check_frontend(img0, dev, record)
-    check_match(dev, record)
-    check_pose(dev, record)
+    record = dict(frontend_packed=check_frontend(img0, dev),
+                  fused_match=check_match(dev), pose_opt_fused=check_pose(dev))
     check_frontend_level(img0, dev, record)
     for name, r in record.items():
         print(f"{name}: max_abs_err {r['max_abs_err']:.3g}, kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+    # the stereo and RGB-D paths' shapes, on the first frames of their clips
+    t_render = time.perf_counter()
+    clips = {name: sr.RIGS[name].render() for name in RIG_PHASES}
+    print(f"rendered the clips of phases 5-7 in "
+          f"{time.perf_counter() - t_render:.2f} s")
+    shapes = {
+        "frontend_packed 1241x376": check_frontend(
+            clips["kitti_stereo"][0][0], dev),
+        "frontend_packed 512x512": check_frontend(
+            clips["tumvi_stereo"][0][0], dev),
+        "fused_match 2000x4096 / 2000x8192": check_match(dev, N=2000),
+        "pose_opt_fused N=2000": check_pose(dev, N=2000),
+    }
+    for name, r in shapes.items():
+        extra = (f", SearchAndFuse kernel {r['fuse_ms']:.4f} ms, plain "
+                 f"{r['fuse_plain_ms']:.4f} ms" if "fuse_ms" in r else "")
+        print(f"{name}: max_abs_err {r['max_abs_err']:.3g}, kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{extra}")
+    for name in ("frontend_packed", "fused_match", "pose_opt_fused"):
+        record[name]["max_abs_err"] = max(
+            [record[name]["max_abs_err"]]
+            + [r["max_abs_err"] for k, r in shapes.items()
+               if k.startswith(name)])
     ms_k, ms_p = run_slice(dev, record)
     slice_launches = {n: record[n]["launches"] for n in
                       ("frontend_packed", "fused_match", "pose_opt_fused")}
     print(f"slice launches: {slice_launches}")
     system = run_system(dev, record)
+    rigs = {name: run_rig(dev, name, clips[name], record)
+            for name in RIG_PHASES}
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=record[name]["launches"],
@@ -676,7 +799,10 @@ def main() -> int:
                       "frontend_pass_lite_ms": record["frontend_pass"]["lite_ms"],
                       "frontend_pass_lite_plain_ms":
                           record["frontend_pass"]["lite_plain_ms"],
-                      "system": system}))
+                      "system": system, "phase2_shapes": shapes,
+                      "stereo": rigs["kitti_stereo"],
+                      "rgbd": rigs["tum1_rgbd"],
+                      "fisheye_stereo": rigs["tumvi_stereo"]}))
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,17 +2,19 @@
 
 numpy-only pieces copied verbatim from `orb_slam3_ros2_tpu/io/synthetic.py`
 (`_so3_exp_np`, `Trajectory`, `default_trajectory`: lines 30-72;
-`_texture`, `render_sequence`: lines 154-251; `umeyama_scale`, `ate_rmse`:
-lines 606-645), so that a machine without JAX can render the same frames
-from the same seed and score a trajectory. `render_sequence` needs cv2; its
-optional `cx`/`cy` (default: the image centre, as in the source) is the
-port's only addition, so a camera with an off-centre principal point such as
-EuRoC cam0 can be rendered.
+`_texture`, `render_sequence`: lines 154-251; the textured room and
+`render_room_sequence_kb8`: lines 259-322, 355-363, 435-545; `umeyama_scale`,
+`ate_rmse`: lines 606-645), so that a machine without JAX can render the same
+frames from the same seed and score a trajectory. The renderers need cv2.
+`render_sequence`'s optional `cx`/`cy` (default: the image centre, as in the
+source) is the port's only addition, so a camera with an off-centre
+principal point such as EuRoC cam0 or KITTI can be rendered.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -163,6 +165,206 @@ def render_sequence(
         return (images, images_r, R_cw.astype(np.float32),
                 t_cw.astype(np.float32), ts)
     return images, R_cw.astype(np.float32), t_cw.astype(np.float32), ts
+
+
+# Textured room with general planes and photometrics, and the KB8 fisheye
+# renderer on top of it: copied from orb_slam3_ros2_tpu/io/synthetic.py
+# (lines 259-322, 355-363, 435-545); the rays come from the port's
+# `cameras.unproject` on a CPU tensor.
+
+
+def _value_noise_texture(h: int, w: int, seed: int) -> np.ndarray:
+    """Multi-octave value-noise texture in [0, 255].
+
+    Natural-image-like autocorrelation (power at all scales) so ORB
+    descriptor repeatability is stressed the way real scenes stress it —
+    the box texture of `_texture` is axis-aligned high contrast everywhere,
+    which flatters FAST/BRIEF."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    img = np.zeros((h, w), np.float32)
+    amp, cells = 1.0, 4
+    total = 0.0
+    while cells < max(h, w):
+        grid = rng.uniform(0, 1, (cells + 1, cells + 1)).astype(np.float32)
+        img += amp * cv2.resize(grid, (w, h), interpolation=cv2.INTER_CUBIC)
+        total += amp
+        amp *= 0.55
+        cells *= 2
+    img = (img - img.min()) / max(img.max() - img.min(), 1e-6)
+    # sprinkle a few high-contrast patches (posters/furniture edges)
+    for _ in range(40):
+        y, x = rng.integers(0, h - 30), rng.integers(0, w - 30)
+        bh, bw = rng.integers(8, 30, size=2)
+        img[y:y + bh, x:x + bw] = rng.uniform(0, 1)
+    return (20.0 + 220.0 * img).astype(np.float32)
+
+
+@dataclasses.dataclass
+class _Plane:
+    origin: np.ndarray  # (3,) world point at texture (0, 0)
+    ax_u: np.ndarray    # (3,) world step per texture pixel along u
+    ax_v: np.ndarray    # (3,) world step per texture pixel along v
+    tex: np.ndarray     # (th, tw) float32
+
+
+def _room_planes(seed: int, half_x=3.0, half_y=2.2, z_near=-2.0, z_far=6.0,
+                 tex_hw=(720, 960)):
+    """Five textured planes forming an open box the camera flies inside:
+    back wall, left/right walls, floor, ceiling (y down = floor at +y)."""
+    th, tw = tex_hw
+    depth_span = z_far - z_near
+
+    def mk(origin, du, dv, extent_u, extent_v, s):
+        return _Plane(
+            origin=np.asarray(origin, np.float64),
+            ax_u=np.asarray(du, np.float64) * (extent_u / tw),
+            ax_v=np.asarray(dv, np.float64) * (extent_v / th),
+            tex=_value_noise_texture(th, tw, seed + s),
+        )
+
+    return [
+        mk([-half_x, -half_y, z_far], [1, 0, 0], [0, 1, 0],
+           2 * half_x, 2 * half_y, 0),                      # back wall
+        mk([-half_x, -half_y, z_near], [0, 0, 1], [0, 1, 0],
+           depth_span, 2 * half_y, 1),                      # left wall
+        mk([half_x, -half_y, z_near], [0, 0, 1], [0, 1, 0],
+           depth_span, 2 * half_y, 2),                      # right wall
+        mk([-half_x, half_y, z_near], [1, 0, 0], [0, 0, 1],
+           2 * half_x, depth_span, 3),                      # floor (+y down)
+        mk([-half_x, -half_y, z_near], [1, 0, 0], [0, 0, 1],
+           2 * half_x, depth_span, 4),                      # ceiling
+    ]
+
+
+
+def _photometric(frame, vignette, gain, noise_dn, rng):
+    """Realistic image formation on top of the ideal render: vignetting,
+    exposure gain, sensor noise, 8-bit quantization, slight defocus."""
+    import cv2
+
+    img = frame * vignette * gain
+    img = cv2.GaussianBlur(img, (0, 0), 0.6)
+    img = img + rng.normal(0.0, noise_dn, img.shape)
+    return np.clip(np.round(img), 0, 255).astype(np.float32)
+
+
+def _render_planes_rays(planes, dirs_cam, R_cw, t_cw):
+    """Z-buffered render for a GENERAL camera: per-pixel rays instead of the
+    pinhole homography warp. dirs_cam (H, W, 3) are unit-z camera-frame ray
+    directions (models.cameras.unproject); sampling is ray-plane
+    intersection + cv2.remap per plane. Shared by the KB8 fisheye path —
+    the image-formation side of `Camera.type: "KannalaBrandt8"`
+    (the reference's `config/Stereo/TUM-VI.yaml:8,17-32`)."""
+    import cv2
+
+    H, W = dirs_cam.shape[:2]
+    R_wc = R_cw.T
+    c_w = -R_cw.T @ t_cw
+    dirs_w = dirs_cam @ R_wc.T  # (H, W, 3) world ray directions
+    frame = np.zeros((H, W), np.float32)
+    zbuf = np.full((H, W), np.inf, np.float32)
+    for pl in planes:
+        n = np.cross(pl.ax_u, pl.ax_v)
+        n /= max(np.linalg.norm(n), 1e-12)
+        den = dirs_w @ n
+        s = float(np.dot(n, pl.origin - c_w)) / np.where(
+            np.abs(den) < 1e-9, 1e-9, den)
+        p = c_w + s[..., None] * dirs_w
+        rel = p - pl.origin
+        # dual basis of (ax_u, ax_v) within the plane
+        Gm = np.array([
+            [pl.ax_u @ pl.ax_u, pl.ax_u @ pl.ax_v],
+            [pl.ax_v @ pl.ax_u, pl.ax_v @ pl.ax_v],
+        ])
+        Gi = np.linalg.inv(Gm)
+        bu = Gi[0, 0] * pl.ax_u + Gi[0, 1] * pl.ax_v
+        bv = Gi[1, 0] * pl.ax_u + Gi[1, 1] * pl.ax_v
+        ut = (rel @ bu).astype(np.float32)
+        vt = (rel @ bv).astype(np.float32)
+        warped = cv2.remap(pl.tex, ut, vt, cv2.INTER_LINEAR,
+                           borderValue=-1.0)
+        vis = (warped >= 0) & (s > 0.1) & (s < zbuf)
+        frame = np.where(vis, warped, frame)
+        zbuf = np.where(vis, s.astype(np.float32), zbuf)
+    zbuf = np.where(np.isinf(zbuf), 0.0, zbuf)
+    return frame, zbuf
+
+
+def render_room_sequence_kb8(
+    n_frames: int,
+    cam,
+    fps: float = 20.0,
+    seed: int = 0,
+    traj: Optional[Trajectory] = None,
+    traj_scale: float = 1.5,
+    photometric: bool = True,
+    noise_dn: float = 3.0,
+    exposure_drift: float = 0.02,
+    stereo_baseline: float = 0.0,
+    cam2=None,
+):
+    """KB8-fisheye render of the textured room (the JAX package's
+    `render_room_sequence` with per-pixel rays; any camera model renders,
+    since the rays come from its own unprojection). `cam` / `cam2` are
+    models.cameras.Camera instances (KANNALA_BRANDT8); rays come from the
+    camera model's own unprojection, so the rendered distortion is exactly
+    the model the engine undistorts with."""
+    import torch
+
+    from orb_slam3_ros2_tpu_torch.models import cameras as cam_mod
+
+    width, height = cam.width, cam.height
+    rng = np.random.default_rng(seed + 77)
+    traj = traj or default_trajectory(seed=seed + 3, scale=traj_scale)
+    ts = np.arange(n_frames) / fps
+    R_wb, p_wb = traj.pose_wb(ts)
+    R_cw = np.swapaxes(R_wb, -1, -2)
+    t_cw = -np.einsum("kij,kj->ki", R_cw, p_wb)
+
+    planes = _room_planes(seed)
+
+    def rays_for(c):
+        uu, vv = np.meshgrid(np.arange(c.width, dtype=np.float64),
+                             np.arange(c.height, dtype=np.float64))
+        uv = np.stack([uu, vv], axis=-1).reshape(-1, 2)
+        d = cam_mod.unproject(c, torch.as_tensor(uv, dtype=torch.float32))
+        d = np.asarray(d.numpy(), np.float64)
+        return d.reshape(c.height, c.width, 3)
+
+    dirs = rays_for(cam)
+    r2 = dirs[..., 0] ** 2 + dirs[..., 1] ** 2
+    vignette = 1.0 / (1.0 + r2) ** 1.5
+    gains = np.exp(np.cumsum(rng.normal(0, exposure_drift, n_frames)))
+    gains = np.clip(gains, 0.7, 1.4)
+
+    images = np.zeros((n_frames, height, width), np.float32)
+    for k in range(n_frames):
+        frame, _ = _render_planes_rays(planes, dirs, R_cw[k], t_cw[k])
+        images[k] = (_photometric(frame, vignette, gains[k], noise_dn, rng)
+                     if photometric else frame)
+
+    if stereo_baseline > 0.0:
+        c2 = cam2 or cam
+        dirs2 = rays_for(c2) if cam2 is not None else dirs
+        r2b = dirs2[..., 0] ** 2 + dirs2[..., 1] ** 2
+        vig2 = 1.0 / (1.0 + r2b) ** 1.5
+        off = np.array([stereo_baseline, 0.0, 0.0])
+        images_r = np.zeros((n_frames, c2.height, c2.width), np.float32)
+        for k in range(n_frames):
+            fr, _ = _render_planes_rays(planes, dirs2, R_cw[k],
+                                        t_cw[k] - off)
+            images_r[k] = (_photometric(fr, vig2, gains[k], noise_dn, rng)
+                           if photometric else fr)
+        return (images, images_r, R_cw.astype(np.float32),
+                t_cw.astype(np.float32), ts)
+    return images, R_cw.astype(np.float32), t_cw.astype(np.float32), ts
+
+
+# ---------------------------------------------------------------------------
+# IMU synthesis
+# ---------------------------------------------------------------------------
 
 
 def umeyama_scale(t_est: np.ndarray, t_gt: np.ndarray) -> float:

@@ -1,15 +1,17 @@
 """The System: the reference's host API over the port's device functions.
 
-Port of `orb_slam3_ros2_tpu/runtime/system.py`, the synchronous monocular
-subset: `System.track_monocular` initializes a map from two views, tracks
-each frame against it, and inserts keyframes through `mapping_step`
-(insert → triangulate against two partners → fuse → local BA → cull) with
-one device-to-host fetch per keyframe (the packed summary), as the JAX
-`_insert_keyframe_fused` does. Also here: `undistort` and `frame_step`, the
+Port of `orb_slam3_ros2_tpu/runtime/system.py`, the synchronous visual
+subset. `System.track_monocular` initializes a map from two views;
+`System.track_stereo` (rectified scanline or general two-view rig) and
+`System.track_rgbd` initialize from one frame's metric depth. Each frame is
+then tracked against the map, and keyframes go through `mapping_step`
+(insert → triangulate against two partners → stereo landmarks, for the rig
+sensors → fuse → local BA → cull) with one device-to-host fetch per
+keyframe (the packed summary). Also here: `undistort` and `frame_step`, the
 per-frame program of the JAX `System._build_jitted` (:205-210, :422-450).
 
 What this slice leaves out raises `NotImplementedError` naming the ROADMAP
-item it waits on (`ROADMAP.md` §1): other sensors (items 6, 7), loop
+item it waits on (`ROADMAP.md` §1): the inertial sensors (item 7), loop
 closing, a vocabulary, a saved atlas and relocalization after tracking is
 lost (item 8, which ports `loop/vocab.py` and the Atlas), and the
 pipelined mode (item 10).
@@ -28,6 +30,7 @@ import torch
 from orb_slam3_ros2_tpu_torch.atlas import map_state as ms
 from orb_slam3_ros2_tpu_torch.frontend import extractor as ex
 from orb_slam3_ros2_tpu_torch.frontend import initializer as init_mod
+from orb_slam3_ros2_tpu_torch.frontend import stereo as stereo_mod
 from orb_slam3_ros2_tpu_torch.frontend import tracking as trk
 from orb_slam3_ros2_tpu_torch.geom import lie
 from orb_slam3_ros2_tpu_torch.io import settings as settings_mod
@@ -73,14 +76,35 @@ def frame_step(m: ms.MapState, R_cur, t_cur, R_prev, t_prev,
             summary)
 
 
+def add_stereo_landmarks(m: ms.MapState, kf_id, R, t, bits, mask, X_cam,
+                         valid) -> ms.MapState:
+    """Spawn a landmark for each feature of keyframe `kf_id` with a metric
+    point (`X_cam`, left camera frame) and no map point yet, placed in the
+    world with the keyframe's pose T_cw = (R, t) (the JAX
+    `_insert_keyframe_stereo_landmarks`, `runtime/system.py:923-940`)."""
+    N = X_cam.shape[0]
+    Rw, tw = lie.se3_inverse(R, t)
+    X_w = lie.se3_apply(Rw, tw, X_cam)
+    free = ms.row(m.kf_obs_lm, kf_id) < 0
+    feat = torch.arange(N, dtype=torch.int32, device=X_cam.device)
+    return ms.add_landmarks(m, X_w, bits, valid & mask & free, kf_id, kf_id,
+                            feat, kf_id, feat)
+
+
 def mapping_step(m: ms.MapState, R, t, timestamp, uv, level, bits, mask,
                  obs_clean, fx, fy, cx, cy, width, height, n_window: int,
-                 n_fixed_ring: int, ba_iters: int = 10):
+                 n_fixed_ring: int, ba_iters: int = 10, stereo=None):
     """The whole visual keyframe insertion (the JAX `mapping_step`,
     `runtime/system.py:369-418`): insert the keyframe → triangulate against
     its predecessor → add landmarks → pick the most covisible second
     partner → strict triangulation → add → SearchAndFuse → covisibility-
     window local BA → landmark culling.
+
+    `stereo` = (X_cam (N, 3), valid (N,)) adds the rig sensors' stage after
+    the triangulations, in the order of the JAX staged
+    `_insert_keyframe(..., stereo=sm)` (:1580-1696): landmarks for the
+    features still without a map point, placed with the tracked pose (R, t)
+    from before BA (`add_stereo_landmarks`).
 
     Keyframe ids stay 0-dim device tensors and the second partner's
     validity is a device-side mask, so the step makes no host sync. Returns
@@ -102,6 +126,8 @@ def mapping_step(m: ms.MapState, R, t, timestamp, uv, level, bits, mask,
         m, new_id, partner, fx, fy, cx, cy, reproj_th=1.0, max_dist=35.0)
     m = ms.add_landmarks(m, X2, b2, a2 & partner_ok, new_id, new_id, fa2,
                          partner, fb2)
+    if stereo is not None:
+        m = add_stereo_landmarks(m, new_id, R, t, bits, mask, *stereo)
     m, _, _ = trk.fuse_map_points(m, new_id, fx, fy, cx, cy, width, height)
     ids, fix = trk.select_local_window(m, new_id, n_window=n_window,
                                        n_fixed_ring=n_fixed_ring)
@@ -115,7 +141,8 @@ def mapping_step(m: ms.MapState, R, t, timestamp, uv, level, bits, mask,
 
 
 class Sensor(enum.IntEnum):
-    """Sensor modes (the reference's enum; only MONOCULAR is ported)."""
+    """Sensor modes (the reference's enum). MONOCULAR, STEREO and RGBD are
+    ported; the IMU_* modes wait on ROADMAP §1 item 7."""
 
     MONOCULAR = 0
     STEREO = 1
@@ -138,7 +165,7 @@ def _not_ported(what: str, item: str):
 
 class System:
     """SLAM engine with the reference System's API: the synchronous
-    monocular subset of the JAX `System`."""
+    monocular, stereo and RGB-D subset of the JAX `System`."""
 
     MIN_INIT_MATCHES = 90
     MIN_TRACK_INLIERS = MIN_TRACK_INLIERS
@@ -172,9 +199,7 @@ class System:
         device when there is one, else the CPU)."""
         del init_frame
         self.sensor = Sensor(sensor)
-        if self.sensor in (Sensor.STEREO, Sensor.RGBD):
-            _not_ported(f"sensor {self.sensor.name}", "6")
-        if self.sensor != Sensor.MONOCULAR:
+        if self.sensor not in (Sensor.MONOCULAR, Sensor.STEREO, Sensor.RGBD):
             _not_ported(f"sensor {self.sensor.name}", "7")
         if pipelined:
             _not_ported("the pipelined mode", "10")
@@ -210,6 +235,21 @@ class System:
         self._cap_vis = (self.MATCH_CAP_VISIBLE
                          if self.map_cfg.max_lm > self.MATCH_CAP_VISIBLE
                          else None)
+        # the stereo observation builder (JAX `_build_jitted`, :214-263):
+        # the general two-view path for a rig with `camera2` and
+        # `Stereo.T_c1_c2` (KannalaBrandt8 fisheye, distorted PinHole), the
+        # rectified scanline path for `Stereo.b` alone
+        cam2 = self.settings.camera2
+        self._stereo_right_raw = (cam2 is not None
+                                  and self.settings.T_c1_c2 is not None)
+        if self._stereo_right_raw:
+            T12 = np.asarray(self.settings.T_c1_c2, np.float64)
+            self._R12 = self._tensor(T12[:3, :3])
+            self._t12 = self._tensor(T12[:3, 3])
+            self.stereo_baseline = float(np.linalg.norm(T12[:3, 3]))
+        else:
+            self.stereo_baseline = float(self.settings.stereo_b
+                                         or cam.baseline or 0.05)
         self.reset()
 
     # ------------------------------------------------------------------ state
@@ -266,6 +306,27 @@ class System:
         f = self._extract(img)
         return dataclasses.replace(f, uv=undistort(self.cam, f.uv))
 
+    def _stereo_obs(self, f_l, f_r) -> stereo_mod.StereoObs:
+        """Metric points for the left features: the left uv are undistorted
+        pinhole pixels; the general path takes the right camera's raw
+        detections through its own unprojection."""
+        cam = self.cam
+        if self._stereo_right_raw:
+            uv = f_l.uv
+            rays_l = torch.stack([(uv[:, 0] - cam.cx) / cam.fx,
+                                  (uv[:, 1] - cam.cy) / cam.fy,
+                                  torch.ones_like(uv[:, 0])], dim=-1)
+            rays_r = cam_mod.unproject(self.settings.camera2, f_r.uv)
+            return stereo_mod.match_stereo_general(
+                rays_l, f_l.signs, f_l.mask, f_l.level, rays_r, f_r.signs,
+                f_r.mask, f_r.level, self._R12, self._t12,
+                scale_factor=self.ex_cfg.scale_factor)
+        sm = stereo_mod.match_stereo(
+            f_l.uv, f_l.signs, f_l.mask, f_l.level, f_r.uv, f_r.signs,
+            f_r.mask, f_r.level, cam.fx, self.stereo_baseline)
+        return stereo_mod.obs_from_rectified(sm, f_l.uv, cam.fx, cam.fy,
+                                             cam.cx, cam.cy)
+
     # ------------------------------------------------------------ public API
 
     def track_monocular(self, im: np.ndarray, timestamp: float,
@@ -281,6 +342,53 @@ class System:
             self._track(feats, timestamp)
         else:
             self._relocalize(feats, timestamp)
+        return self._end_frame(feats, timestamp, t0)
+
+    def track_stereo(self, im_left: np.ndarray, im_right: np.ndarray,
+                     timestamp: float,
+                     imu_measurements: Sequence = ()) -> np.ndarray:
+        """Stereo per-frame entry point; returns the 4x4 T_cw. Landmarks
+        are spawned at metric depth from rectified scanline matches or
+        general two-view triangulation, so no two-view initialization is
+        needed."""
+        del imu_measurements
+        t0 = _time.perf_counter()
+        img_l = self._preprocess(im_left)
+        img_r = self._preprocess(im_right)
+        feats = self._extract_undistorted(img_l)
+        feats_r = (self._extract(img_r) if self._stereo_right_raw
+                   else self._extract_undistorted(img_r))
+        self._step_metric(feats, self._stereo_obs(feats, feats_r), timestamp)
+        return self._end_frame(feats, timestamp, t0)
+
+    def track_rgbd(self, im: np.ndarray, depthmap: np.ndarray,
+                   timestamp: float,
+                   imu_measurements: Sequence = ()) -> np.ndarray:
+        """RGB-D per-frame entry point; returns the 4x4 T_cw. Depth is
+        sampled at each raw keypoint and backprojected through the
+        undistorted pixel; the rest is the stereo path's."""
+        del imu_measurements
+        t0 = _time.perf_counter()
+        f_raw = self._extract(self._preprocess(im))
+        feats = dataclasses.replace(f_raw, uv=undistort(self.cam, f_raw.uv))
+        cam = self.cam
+        sm = stereo_mod.obs_from_depth(
+            f_raw.uv, feats.uv, feats.mask, self._tensor(depthmap), cam.fx,
+            cam.fy, cam.cx, cam.cy,
+            max_depth=float(self.settings.th_far_points or 40.0))
+        self._step_metric(feats, sm, timestamp)
+        return self._end_frame(feats, timestamp, t0)
+
+    def _step_metric(self, feats, sm, timestamp: float):
+        if self.state == TrackingState.NOT_INITIALIZED:
+            self._initialize_stereo(feats, sm, timestamp)
+        elif self.state == TrackingState.OK:
+            self._track(feats, timestamp, stereo=sm)
+        else:
+            self._relocalize(feats, timestamp)
+
+    def _end_frame(self, feats, timestamp: float, t0: float) -> np.ndarray:
+        """The per-frame bookkeeping every entry point ends with."""
         self.last_frame_feats = feats
         self.last_frame_time = timestamp
         self.n_frames += 1
@@ -427,6 +535,30 @@ class System:
         self.last_kf_inliers = int(good.sum())
         self.kf_times = [self.ref_time or 0.0, timestamp]
 
+    def _initialize_stereo(self, feats, sm, timestamp: float):
+        """One-frame metric initialization: at least 80 features with a
+        valid point make keyframe 0 at the identity, each one a landmark."""
+        accept = sm.valid & feats.mask
+        n_depth = int(accept.sum())
+        if n_depth < 80:
+            return
+        N = feats.uv.shape[0]
+        dev = self.device
+        m = ms.insert_keyframe(self.map, torch.eye(3, device=dev),
+                               torch.zeros(3, device=dev), timestamp, feats.uv,
+                               feats.level, feats.bits, feats.mask,
+                               torch.full((N,), -1, dtype=torch.int32,
+                                          device=dev))
+        feat = torch.arange(N, dtype=torch.int32, device=dev)
+        self.map = ms.add_landmarks(m, sm.X_cam, feats.bits, accept, 0, 0,
+                                    feat, 0, feat)
+        self.state = TrackingState.OK
+        self.Tcw = np.eye(4, dtype=np.float32)
+        self.last_Tcw = self.Tcw.copy()
+        self.frames_since_kf = 0
+        self.last_kf_inliers = n_depth
+        self.kf_times = [timestamp]
+
     # ------------------------------------------------------------- tracking
 
     def _predict_pose(self) -> np.ndarray:
@@ -434,7 +566,7 @@ class System:
             return self.velocity @ self.Tcw
         return self.Tcw
 
-    def _track(self, feats, timestamp: float):
+    def _track(self, feats, timestamp: float, stereo=None):
         T_pred = self._predict_pose()
         cam = self.cam
         # one device program and one fetch of the (16,) summary
@@ -460,16 +592,18 @@ class System:
         self.Tcw = T_new
         self.frames_since_kf += 1
         if self._need_keyframe(n_inl, n_kf_now):
-            self._insert_keyframe_fused(feats, obs_clean, timestamp, n_inl)
+            self._insert_keyframe_fused(feats, obs_clean, timestamp, n_inl,
+                                        stereo)
 
     def _relocalize(self, feats, timestamp: float):
         _not_ported("relocalization after tracking is lost (loop/vocab.py "
                     "and the keyframe BoW database)", "8")
 
     def _need_keyframe(self, n_inl: int, n_kf: int = -1) -> bool:
-        """The monocular keyframe cadence: a keyframe every
-        max(fps // 2, 5) frames, or earlier (after KF_MIN_GAP frames) when
-        the inliers drop under 75% of the last keyframe's or under 60."""
+        """The keyframe cadence of every ported sensor (the JAX System gives
+        only IMU_MONOCULAR a denser one): a keyframe every max(fps // 2, 5)
+        frames, or earlier (after KF_MIN_GAP frames) when the inliers drop
+        under 75% of the last keyframe's or under 60."""
         if n_kf < 0:
             n_kf = int(self.map.n_kf)
         if n_kf >= self.map_cfg.max_kf - 1:
@@ -482,8 +616,9 @@ class System:
         return n_inl < 0.75 * self.last_kf_inliers or n_inl < 60
 
     def _insert_keyframe_fused(self, feats, obs_clean, timestamp: float,
-                               n_inl: int):
-        """One `mapping_step` and one fetch of its summary, then the host
+                               n_inl: int, stereo=None):
+        """One `mapping_step` (with the stereo stage when `stereo`, a
+        StereoObs, is given) and one fetch of its summary, then the host
         bookkeeping (compaction triggers). The JAX version also inserts the
         keyframe's BoW row here, which goes with relocalization (ROADMAP §1
         item 8)."""
@@ -493,7 +628,8 @@ class System:
             self._tensor(self.Tcw[:3, 3]), timestamp, feats.uv, feats.level,
             feats.bits, feats.mask, obs_clean.to(torch.int32), cam.fx,
             cam.fy, cam.cx, cam.cy, cam.width, cam.height,
-            n_window=self.LOCAL_WINDOW, n_fixed_ring=self.LOCAL_FIXED_RING)
+            n_window=self.LOCAL_WINDOW, n_fixed_ring=self.LOCAL_FIXED_RING,
+            stereo=None if stereo is None else (stereo.X_cam, stereo.valid))
         self.map = m
         s = summary.cpu().numpy()
         n_kf_after, n_lm = int(s[12]), int(s[13])

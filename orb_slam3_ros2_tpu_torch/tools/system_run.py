@@ -1,8 +1,13 @@
-"""Run the monocular System over a rendered EuRoC-intrinsics clip: the
-configuration of `chip_smoke.py` phase 4, which imports it from here.
+"""Run the System over a rendered clip of one of the configurations of
+`chip_smoke.py` phases 4-7, which import them from here.
 
     python -m orb_slam3_ros2_tpu_torch.tools.system_run [--device DEV]
-        [--profile] [--cpu-inputs] [--init-offsets K ...]
+        [--config NAME] [--profile] [--cpu-inputs] [--init-offsets K ...]
+
+--config      euroc_mono (the default: `track_monocular`, phase 4),
+              kitti_stereo, tum1_rgbd or tumvi_stereo (`track_stereo` /
+              `track_rgbd`, phases 5-7; see `RIGS`). The three options
+              below apply to euroc_mono only.
 
 --profile     (CUDA) trace frames 16-24, then the first keyframe insertion
               from frame 25 on, with torch.profiler; print for each the wall
@@ -19,8 +24,21 @@ configuration of `chip_smoke.py` phase 4, which imports it from here.
 
 Prints one JSON object per report, and one per run with its result:
 initializing frame, keyframe and landmark counts, tracked frames,
-Sim3-aligned ATE of `get_frame_trajectory()` and `get_trajectory()`,
-per-frame ms.
+Sim3-aligned ATE of `get_frame_trajectory()` and `get_trajectory()` (for a
+rig configuration: of `get_trajectory()`, and the unaligned trajectory
+length against the ground truth's), per-frame ms.
+
+The rig configurations take a published settings file's widths unchanged:
+image size, intrinsics, feature count, levels, FAST thresholds, baseline
+and `Stereo.ThDepth`. What each cuts (`reduced`): rendered frames instead
+of a recorded sequence, a 22-30-frame clip of it, fps 10 where the source
+says 20 or 30, loop closing off; TUM1 drops its radtan distortion (the
+frames are rendered without it, so the settings say `Rectified`), and
+TUM-VI's `Stereo.T_c1_c2` keeps only its x translation (the renderer's rig
+is a translation along x). KITTI and TUM-VI fly through the textured room
+of `render_room_sequence_kb8` (walls, floor and ceiling; photometric
+noise), TUM1 past the fronto-parallel planes of `render_sequence`, which
+also renders its depth.
 """
 
 from __future__ import annotations
@@ -32,14 +50,19 @@ import statistics
 import tempfile
 import time
 from pathlib import Path
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
 
 from orb_slam3_ros2_tpu_torch.frontend import extractor as ex
 from orb_slam3_ros2_tpu_torch.frontend import initializer as init_mod
+from orb_slam3_ros2_tpu_torch.io import settings as settings_mod
 from orb_slam3_ros2_tpu_torch.io import synthetic
+from orb_slam3_ros2_tpu_torch.models import cameras
 from orb_slam3_ros2_tpu_torch.runtime import system as sysm
+
+REPO = Path(__file__).resolve().parents[2]
 
 # EuRoC cam0 (config/Monocular/EuRoC.yaml) and the renderer settings of
 # tests/test_e2e_mono.py
@@ -75,6 +98,172 @@ def make_system(device) -> sysm.System:
     with tempfile.TemporaryDirectory() as tmp:
         return sysm.System(None, write_settings(Path(tmp) / "euroc.yaml"),
                            sysm.Sensor.MONOCULAR, device=device)
+
+
+# ------------------------------------------------- stereo and RGB-D rigs
+
+def _yaml_value(v) -> str:
+    if isinstance(v, np.ndarray):
+        data = ", ".join(repr(float(x)) for x in v.reshape(-1))
+        return (f"!!opencv-matrix\n  rows: {v.shape[0]}\n  cols: {v.shape[1]}"
+                f"\n  dt: f\n  data: [{data}]")
+    if isinstance(v, str):
+        return f'"{v}"'
+    return repr(v)
+
+
+def derived_settings(source: str, overrides: dict, drop=()) -> str:
+    """The OpenCV-YAML text of `source` (a path under the repository) with
+    `overrides` applied and the keys in `drop` removed."""
+    d = settings_mod.load_opencv_yaml(str(REPO / source))
+    d.update(overrides)
+    return "%YAML:1.0\n" + "".join(f"{k}: {_yaml_value(v)}\n"
+                                    for k, v in d.items() if k not in drop)
+
+
+def _kb8(d: dict, prefix: str, width: int, height: int) -> cameras.Camera:
+    return cameras.make_camera(
+        "KannalaBrandt8", d[f"{prefix}.fx"], d[f"{prefix}.fy"],
+        d[f"{prefix}.cx"], d[f"{prefix}.cy"],
+        [d[f"{prefix}.k{i}"] for i in (1, 2, 3, 4)], width, height)
+
+
+@dataclasses.dataclass(frozen=True)
+class Rig:
+    """A stereo or RGB-D configuration: `settings()` gives the YAML text,
+    `render()` the clip as (images, right images or depth maps, R_gt, t_gt,
+    timestamps), and the bounds are those of the JAX e2e test it mirrors."""
+
+    name: str
+    sensor: sysm.Sensor
+    source: str
+    n_frames: int
+    settings: Callable[[], str]
+    render: Callable[[], Tuple]
+    min_tracked: int  # tracked frames must exceed this
+    ate_max_m: float  # Sim3-aligned ATE of get_trajectory()
+    length_tol: float  # |unaligned length / ground truth's - 1|
+
+
+KITTI = "config/Stereo/KITTI00-02.yaml"
+TUM1 = "config/Monocular/TUM1.yaml"
+TUMVI = "config/Stereo/TUM-VI.yaml"
+TUMVI_BASELINE = 0.1010611  # the x translation of TUM-VI's Stereo.T_c1_c2
+
+
+def _kitti_render():
+    """The textured room seen through KITTI's rectified left camera. At
+    this width the fronto-parallel planes of `tests/test_e2e_stereo.py`
+    give a length ratio that falls below the bound for some sub-gray-level
+    perturbations of the images, in the JAX System as in the port
+    (PERF.md §6); the room's stays within 3%."""
+    d = settings_mod.load_opencv_yaml(str(REPO / KITTI))
+    cam = cameras.make_camera("Rectified", d["Camera1.fx"], d["Camera1.fy"],
+                              d["Camera1.cx"], d["Camera1.cy"], (),
+                              d["Camera.width"], d["Camera.height"])
+    return synthetic.render_room_sequence_kb8(
+        n_frames=30, cam=cam, fps=10.0, seed=2, traj_scale=1.4,
+        noise_dn=2.0, stereo_baseline=d["Stereo.b"])
+
+
+def _tum1_settings() -> str:
+    return derived_settings(TUM1, {"Camera.type": "Rectified",
+                                   "Camera.fps": 10.0, "loopClosing": 0},
+                            drop=("Camera1.k1", "Camera1.k2", "Camera1.p1",
+                                  "Camera1.p2", "Camera1.k3"))
+
+
+def _tum1_render():
+    d = settings_mod.load_opencv_yaml(str(REPO / TUM1))
+    return synthetic.render_sequence(
+        n_frames=30, width=d["Camera.width"], height=d["Camera.height"],
+        fx=d["Camera1.fx"], fy=d["Camera1.fy"], fps=10.0, seed=2,
+        plane_depths=(5.0, 8.0), traj_scale=1.4, return_depth=True,
+        cx=d["Camera1.cx"], cy=d["Camera1.cy"])
+
+
+def _tumvi_settings() -> str:
+    T = np.eye(4)
+    T[0, 3] = TUMVI_BASELINE
+    return derived_settings(TUMVI, {"Camera.fps": 10.0, "Stereo.T_c1_c2": T,
+                                    "loopClosing": 0})
+
+
+def _tumvi_render():
+    d = settings_mod.load_opencv_yaml(str(REPO / TUMVI))
+    W, H = d["Camera.width"], d["Camera.height"]
+    return synthetic.render_room_sequence_kb8(
+        n_frames=22, cam=_kb8(d, "Camera1", W, H),
+        cam2=_kb8(d, "Camera2", W, H), fps=10.0, seed=4, traj_scale=0.8,
+        noise_dn=2.0, stereo_baseline=TUMVI_BASELINE)
+
+
+RIGS = {r.name: r for r in (
+    # tests/test_e2e_stereo.py's bounds at KITTI00-02 width, on the room
+    Rig("kitti_stereo", sysm.Sensor.STEREO, KITTI, 30,
+        lambda: derived_settings(KITTI, {"loopClosing": 0}), _kitti_render,
+        min_tracked=15, ate_max_m=0.08, length_tol=0.12),
+    # tests/test_e2e_rgbd.py's at TUM1's intrinsics
+    Rig("tum1_rgbd", sysm.Sensor.RGBD, TUM1, 30, _tum1_settings,
+        _tum1_render, min_tracked=15, ate_max_m=0.08, length_tol=0.10),
+    # tests/test_e2e_fisheye.py's stereo test at TUM-VI's KB8 rig
+    Rig("tumvi_stereo", sysm.Sensor.STEREO, TUMVI, 22, _tumvi_settings,
+        _tumvi_render, min_tracked=22 - 8 - 1, ate_max_m=0.10,
+        length_tol=0.10),
+)}
+
+
+def make_rig_system(rig: Rig, device) -> sysm.System:
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / f"{rig.name}.yaml"
+        path.write_text(rig.settings())
+        return sysm.System(None, str(path), rig.sensor, device=device)
+
+
+def track_rig(slam: sysm.System, rig: Rig, frames, k: int):
+    """Feed frame k of a rendered rig clip to its entry point."""
+    images, second, _, _, ts = frames
+    if rig.sensor == sysm.Sensor.RGBD:
+        return slam.track_rgbd(images[k], second[k], float(ts[k]))
+    return slam.track_stereo(images[k], second[k], float(ts[k]))
+
+
+def rig_metrics(slam: sysm.System, R_gt, t_gt) -> dict:
+    """The JAX e2e tests' measures on get_trajectory(): tracked frames,
+    Sim3-aligned ATE, and the unaligned trajectory length against the
+    ground truth's."""
+    tracked = tracked_frames(slam)
+    traj = slam.get_trajectory()
+    est = np.array([-traj[k][1][:3, :3].T @ traj[k][1][:3, 3]
+                    for k in tracked])
+    gt = np.array([-R_gt[k].T @ t_gt[k] for k in tracked])
+    if len(tracked) < 2:
+        return dict(n_tracked=len(tracked), ate_m=None, length_ratio=None)
+    len_est = np.linalg.norm(np.diff(est, axis=0), axis=1).sum()
+    len_gt = np.linalg.norm(np.diff(gt, axis=0), axis=1).sum()
+    return dict(n_tracked=len(tracked), ate_m=synthetic.ate_rmse(est, gt),
+                length_ratio=float(len_est / len_gt))
+
+
+def run_rig(name: str, device) -> dict:
+    device = torch.device(device)
+    rig = RIGS[name]
+    frames = rig.render()
+    slam = make_rig_system(rig, device)
+    frame_ms = []
+    for k in range(rig.n_frames):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        track_rig(slam, rig, frames, k)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    return dict(config=name, device=str(device),
+                state=slam.get_tracking_state().name,
+                n_kf=int(slam.map.n_kf), n_lm=int(slam.map.lm_valid.sum()),
+                **rig_metrics(slam, frames[2], frames[3]), frame_ms=frame_ms,
+                median_frame_ms=statistics.median(frame_ms))
 
 
 def tracked_frames(slam: sysm.System) -> list:
@@ -211,7 +400,15 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--cpu-inputs", action="store_true")
     ap.add_argument("--init-offsets", type=int, nargs="+", default=[0])
+    ap.add_argument("--config", default="euroc_mono",
+                    choices=["euroc_mono", *RIGS])
     args = ap.parse_args(argv)
+    if args.config != "euroc_mono":
+        if args.profile or args.cpu_inputs or args.init_offsets != [0]:
+            ap.error("--profile, --cpu-inputs and --init-offsets apply to "
+                     "euroc_mono only")
+        print(json.dumps(run_rig(args.config, args.device)))
+        return
     if args.profile and torch.device(args.device).type != "cuda":
         ap.error("--profile traces a CUDA device")
     for k in args.init_offsets:

@@ -118,7 +118,7 @@ def test_port_e2e_mono_tracks_and_ate(rendered, tmp_path, two_threads,
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(sensor=Sensor.STEREO), "6"), (dict(sensor=Sensor.RGBD), "6"),
+    (dict(sensor=Sensor.IMU_STEREO), "7"), (dict(sensor=Sensor.IMU_RGBD), "7"),
     (dict(sensor=Sensor.IMU_MONOCULAR), "7"), (dict(pipelined=True), "10"),
     (dict(vocab_path="vocab.txt"), "8"), (dict(load_atlas="atlas"), "8")])
 def test_left_out_parts_raise(tmp_path, kwargs, item):

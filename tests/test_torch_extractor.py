@@ -213,6 +213,29 @@ def test_frontend_kernel_matches_plain_on_gpu(cuda_device):
     np.testing.assert_array_equal(got[3].cpu().numpy(), ref[3].cpu().numpy())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(376, 1241), (512, 512)])
+def test_frontend_kernel_matches_plain_on_gpu_at_rig_widths(cuda_device,
+                                                            shape):
+    """The 8-level pyramids of a KITTI (1241x376) and a TUM-VI (512x512)
+    frame, at the bounds of the 752x480 case."""
+    img = _texture(*shape, seed=6).astype(np.float32)
+    levels = tpyr.build_pyramid(torch.from_numpy(img).to(cuda_device), 8, 1.2)
+    got = tfp.frontend_pass_packed(levels)
+    ref = tfp.frontend_pass_packed_ref(levels)
+    torch.cuda.synchronize()
+    assert got[4] == ref[4] and got[0].shape[1] == shape[1]
+    B = 4
+    s, k, b = (x.cpu().numpy() for x in got[:3])
+    s_r, k_r, b_r = (x.cpu().numpy() for x in ref[:3])
+    for (r0, h, w) in got[4]:
+        sl = np.s_[r0 + B:r0 + h - B, B:w - B]
+        np.testing.assert_allclose(s[sl], s_r[sl], atol=1e-4)
+        np.testing.assert_array_equal(k[sl], k_r[sl])
+        np.testing.assert_allclose(b[sl], b_r[sl], rtol=1e-5, atol=1e-3)
+    np.testing.assert_array_equal(got[3].cpu().numpy(), ref[3].cpu().numpy())
+
+
 def test_frontend_wrapper_raises_off_cpu_without_a_kernel():
     """Only a CPU tensor takes the plain version; any other device goes to
     the kernel path, which refuses a non-CUDA tensor instead of falling

@@ -182,6 +182,29 @@ def test_match_kernel_matches_plain_on_gpu(cuda_device, M, kw):
                                   ref.dist[v].cpu().numpy())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,kw", [
+    (4096, dict(radius=15.0, ratio=0.9, mutual=True)),  # tracking
+    (8192, FUSE)])  # SearchAndFuse
+def test_match_kernel_matches_plain_on_gpu_at_2000_features(cuda_device, M,
+                                                            kw):
+    """KITTI's 2000 features per frame (`config/Stereo/KITTI00-02.yaml`)
+    against the visible cap and against every landmark slot."""
+    sa, ma, uva, sb, mb, uvb = _match_case(seed=3, N=2000, M=M, spread=3.0)
+    args = [_bits(sa), torch.from_numpy(ma), torch.from_numpy(uva),
+            _bits(sb), torch.from_numpy(mb), torch.from_numpy(uvb)]
+    args = [a.to(cuda_device) for a in args]
+    got = tfm.match_window(*args, **kw)
+    ref = tfm.match_window_ref(*args, **kw)
+    assert int(ref.valid.sum()) > 20
+    np.testing.assert_array_equal(got.idx.cpu().numpy(), ref.idx.cpu().numpy())
+    np.testing.assert_array_equal(got.valid.cpu().numpy(),
+                                  ref.valid.cpu().numpy())
+    v = ref.valid
+    np.testing.assert_array_equal(got.dist[v].cpu().numpy(),
+                                  ref.dist[v].cpu().numpy())
+
+
 def test_match_wrapper_raises_off_cpu_without_a_kernel():
     """A non-CPU, non-CUDA tensor is refused, never matched by the plain
     version."""

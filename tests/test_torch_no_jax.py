@@ -1,7 +1,9 @@
 """The port runs where JAX is absent: in a fresh interpreter whose `jax`
-import fails, every module of `orb_slam3_ros2_tpu_torch` imports,
-`frame_step` tracks a small image on the CPU, and `System.track_monocular`
-takes two frames (the second one runs the matcher and the initializer)."""
+import fails, every module of `orb_slam3_ros2_tpu_torch` imports (the
+stereo module by name too), `frame_step` tracks a small image on the CPU,
+`System.track_monocular` takes two frames (the second one runs the matcher
+and the initializer), and `System.track_stereo` takes one rendered pair
+(stereo matching and the one-frame initialization)."""
 
 import subprocess
 import sys
@@ -17,6 +19,7 @@ import torch
 import orb_slam3_ros2_tpu_torch as pkg
 
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+assert "orb_slam3_ros2_tpu_torch.frontend.stereo" in names
 for name in names:
     importlib.import_module(name)
 assert not any(k in ("jax", "orb_slam3_ros2_tpu")
@@ -77,6 +80,24 @@ for k in (0, 2):
 assert slam.n_frames == 2 and init_calls == [1], init_calls
 assert slam.get_tracking_state() in (TrackingState.NOT_INITIALIZED,
                                      TrackingState.OK)
+
+from orb_slam3_ros2_tpu_torch.frontend import stereo
+from orb_slam3_ros2_tpu_torch.runtime.system import Sensor
+
+imgs_l, imgs_r, _, _, ts = render_sequence(
+    n_frames=1, width=SW, height=SH, fx=SF, fy=SF, fps=10.0, seed=2,
+    plane_depths=(5.0, 8.0), stereo_baseline=0.12)
+with open(cfg_path, "a") as fh:
+    fh.write("Stereo.b: 0.12\n")
+rig = System(None, cfg_path, Sensor.STEREO, device="cpu")
+obs = []
+stereo_obs = rig._stereo_obs
+rig._stereo_obs = lambda *a: obs.append(stereo_obs(*a)) or obs[-1]
+T = rig.track_stereo(imgs_l[0], imgs_r[0], float(ts[0]))
+assert T.shape == (4, 4) and np.isfinite(T).all()
+assert isinstance(obs[0], stereo.StereoObs) and int(obs[0].valid.sum()) >= 80
+assert rig.get_tracking_state() == TrackingState.OK
+assert int(rig.map.n_lm) == int(obs[0].valid.sum())
 assert not any(k in ("jax", "orb_slam3_ros2_tpu")
                or k.startswith(("jax.", "orb_slam3_ros2_tpu."))
                for k, v in sys.modules.items() if v is not None)

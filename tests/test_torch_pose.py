@@ -106,6 +106,27 @@ def test_pose_kernel_matches_plain_on_gpu(cuda_device):
                                   ref.inliers.cpu().numpy())
 
 
+@pytest.mark.cuda
+def test_pose_kernel_matches_plain_on_gpu_at_2000_points(cuda_device):
+    """2000 observations, KITTI's feature count: inside the kernel's
+    shared-memory ceiling (`pose_opt_max_points`) with the least room of
+    any configuration."""
+    X, uv, invs2, mask, K, R_true, t_true = _pose_case(4, 2000, 0.3)
+    args = [torch.eye(3), torch.zeros(3), torch.from_numpy(X),
+            torch.from_numpy(uv), torch.from_numpy(invs2),
+            torch.from_numpy(mask)]
+    args = [a.to(cuda_device) for a in args]
+    got = tpof.optimize_pose_fused(*args, *K)
+    ref = tpo.optimize_pose(*args, *K)
+    np.testing.assert_allclose(got.R.cpu().numpy(), ref.R.cpu().numpy(),
+                               atol=5e-5)
+    np.testing.assert_allclose(got.t.cpu().numpy(), ref.t.cpu().numpy(),
+                               atol=5e-4)
+    np.testing.assert_array_equal(got.inliers.cpu().numpy(),
+                                  ref.inliers.cpu().numpy())
+    np.testing.assert_allclose(got.R.cpu().numpy(), R_true, atol=2e-3)
+
+
 def test_pose_wrapper_raises_off_cpu_without_a_kernel():
     """A non-CPU, non-CUDA tensor is refused, never optimized by the plain
     version."""
