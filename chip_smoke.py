@@ -14,15 +14,26 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    versions on the card, at the shapes the tracking path gives them
    (752x480 over 8 levels; 1000 features x 4096 visible landmarks for
    tracking and x 8192 landmark slots for SearchAndFuse; 1000 pose
-   observations), with each one's median time beside its plain version's;
-   then again at the stereo and RGB-D paths' shapes: the 8-level pyramids
-   of a 1241x376 (KITTI) and a 512x512 (TUM-VI) frame, 2000 features x 4096
-   visible landmarks at 15 px and x 8192 slots at 4 px (max_dist 45, no
-   ratio, not mutual), and 2000 pose observations.
+   observations); then again at the stereo and RGB-D paths' shapes: the
+   8-level pyramids of a 1241x376 (KITTI) and a 512x512 (TUM-VI) frame,
+   2000 features x 4096 visible landmarks at 15 px and x 8192 slots at 4 px
+   (max_dist 45, no ratio, not mutual), and 2000 pose observations. The
+   packed frontend must give score exactly on the whole canvas, keep
+   exactly 4 px inside each level, raw exactly on each level, 0 / false
+   outside the levels, one kernel and no other device op per call, and
+   the extractor's features bit for bit as through the plain version
+   (752x480 and 1241x376).
 2b. Per-level kernels: `fast_nms`, `blur7`, `frontend_pass` and
    `frontend_pass_lite` on each of the 8 levels of a 752x480 frame's
    pyramid, against their plain versions at the JAX oracle tests'
-   tolerances, and one call of each timed on level 0.
+   tolerances, and one call of each timed on level 0; `blur7` beside
+   `conv2d` with the same 7x7 taps (its library yardstick).
+   For every kernel phases 2 and 2b print its device time per launch
+   (torch.profiler, the kernel's own device events), its bound (the larger
+   of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s, H100
+   SXM data sheet) and the share of the bound, the wrapper's time (CUDA
+   events around back-to-back calls, what the path pays) and the plain
+   version's.
 3. Slice: renders a 752x480 sequence (EuRoC intrinsics, seed 1), seeds a
    full-size map (256 keyframes, 8192 landmarks, 1000 features) from frame
    0's features and ground-truth depth, and tracks the following frames with
@@ -55,9 +66,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON record (`launches`: the sum over the runs of phases 3-7,
-each counted from 0 around its run; the per-level kernels: phase 2b), the
-line before that the card, and the one before that the phases' results.
-Imports nothing of JAX.
+each counted from 0 around its run; the per-level kernels: phase 2b; `ms`:
+device time per launch at the main-path shape, `wrapper_ms` the wrapper's
+time there), the line before that the card, and the one before that the
+phases' results. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -122,6 +134,23 @@ MIN_KF, MIN_LM, MIN_TRACKED = 4, 100, 20
 # length ratio 1.0054 / 0.9966 / 0.9274 (PERF.md §4)
 RIG_PHASES = ("kitti_stereo", "tum1_rgbd", "tumvi_stereo")
 
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 operations/s
+# outside the tensor cores (integer and min/max operations are counted at
+# the same rate)
+PEAK_BYTES_S, PEAK_OPS_S = 3.35e12, 67e12
+# operations per pixel, counted from the kernels' code: FAST-9 by the
+# doubling window (64 min + 64 max, 30 arc maxima/minima, 2 subtractions,
+# 2 max), 3x3 NMS (8 compares), separable 7x7 blur (2 x 7 multiplies + 2 x
+# 6 adds); the moment maps' prefix sums (4) and 31 disc rows (6 each, + 2)
+OPS_FAST, OPS_NMS, OPS_BLUR, OPS_MOMENTS = 162, 8, 26, 192
+# match: the window test of a pair (2 sub, 2 abs, 2 compare, the masks);
+# a pair inside the window: 8 XOR, 8 popcount, 8 adds, atomicMin, top-2
+OPS_MATCH_PAIR, OPS_MATCH_IN_WINDOW = 7, 28
+# pose LM: 3 rounds x (1 + 5) evaluations of ~235 operations a point
+# (transform 18, projection and residual 16, chi2/Huber/weights 15,
+# Jacobian 18, the 28 Gram entries 168)
+POSE_EVALS, OPS_POSE_POINT = 18, 235
+
 
 class PhaseError(RuntimeError):
     pass
@@ -140,31 +169,70 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
-    """Median over `rounds` of the mean time of `reps` back-to-back calls of
-    fn(), in ms, from CUDA events on the current stream (after a warm-up)."""
-    import torch
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the f32 rate."""
+    t_b = n_bytes / PEAK_BYTES_S * 1e3
+    t_o = n_ops / PEAK_OPS_S * 1e3
+    return dict(bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations",
+                bytes=n_bytes, ops=n_ops)
 
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
+
+def kernel_times(fn, names, n_bytes, n_ops, plain=None) -> dict:
+    """Device time per launch (profiler), bound and share, the wrapper's
+    time and the plain version's, for the kernel behind fn()."""
+    from orb_slam3_ros2_tpu_torch.tools.kernel_timing import (device_events,
+                                                              time_ms)
+
+    dev_ms, ops = device_events(fn, names)
+    out = dict(device_ms=dev_ms, device_ops=ops, wrapper_ms=time_ms(fn),
+               **bound(n_bytes, n_ops))
+    out["ms"] = dev_ms if dev_ms is not None else out["wrapper_ms"]
+    out["share"] = out["bound_ms"] / out["ms"]
+    if plain is not None:
+        out["plain_ms"] = time_ms(plain)
+    return out
+
+
+def aten_ops(fn) -> list:
+    """The aten operators one call of fn() dispatches, in order."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Log(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Log() as log:
+        fn()
+    return log.ops
+
+
+def print_times(label: str, r: dict) -> None:
+    dev = ("not measured" if r["device_ms"] is None
+           else f"{r['device_ms']:.5f} ms")
+    extra = "".join(f", {k} {r[k]:.5f} ms" for k in
+                    ("plain_ms", "library_ms") if k in r)
+    print(f"{label}: device {dev} per launch, bound {r['bound_ms']:.5f} ms "
+          f"({r['bound_by']}: {r['bytes']:.0f} B, {r['ops']:.0f} ops), "
+          f"share {r['share']:.1%}, wrapper {r['wrapper_ms']:.5f} ms{extra}")
 
 
 # ---------------------------------------------------------------- phase 2
 
-def check_frontend(img, dev):
+def check_frontend(img, dev, n_features=None):
     """The packed frontend on img's 8-level pyramid against its plain
-    version; returns max_abs_err and both times."""
+    version: score exact on the whole canvas, keep exact 4 px inside each
+    level, raw exact on each level, blur within the oracle's bounds 4 px
+    inside each level, 0 / false outside the levels; one kernel and no
+    other device op per call. With `n_features`, the extractor's features
+    through the kernel and through the plain version must be identical.
+    Returns max_abs_err and the times of `kernel_times`."""
     import torch
     from orb_slam3_ros2_tpu_torch.ops import frontend_packed as fp
     from orb_slam3_ros2_tpu_torch.ops import pyramid as pyr
@@ -173,30 +241,74 @@ def check_frontend(img, dev):
     score, keep, blur, raw, layout = fp.frontend_pass_packed(levels)
     s_r, k_r, b_r, r_r, lay_r = fp.frontend_pass_packed_ref(levels)
     torch.cuda.synchronize()
+    tag = f"frontend {img.shape[1]}x{img.shape[0]}"
     _, total = fp.pack_layout([tuple(l.shape) for l in levels])
     require(layout == lay_r and tuple(score.shape) == (total, img.shape[1]),
-            f"frontend layout {layout}, canvas {tuple(score.shape)}")
+            f"{tag}: layout {layout}, canvas {tuple(score.shape)}")
+    require(bool((score == s_r).all()), f"{tag}: score not exact, max "
+            f"{(score - s_r).abs().max().item()}")
+    require(bool((raw == r_r).all()), f"{tag}: raw differs")
+    outside = torch.ones_like(keep)
     B = 4
     err = 0.0
     for (r0, h, w) in layout:
+        outside[r0:r0 + h, :w] = False
         sl = (slice(r0 + B, r0 + h - B), slice(B, w - B))
-        ds = (score[sl] - s_r[sl]).abs().max().item()
-        require(ds <= 1e-4, f"frontend score differs by {ds} at level {r0}")
         require(bool((keep[sl] == k_r[sl]).all()),
-                f"frontend keep differs at level row {r0}")
+                f"{tag}: keep differs at level row {r0}")
         db = (blur[sl] - b_r[sl]).abs()
         require(bool((db <= 1e-3 + 1e-5 * b_r[sl].abs()).all()),
-                f"frontend blur differs by {db.max().item()} at row {r0}")
-        full = (slice(r0, r0 + h), slice(0, w))
-        require(bool((raw[full] == r_r[full]).all()), "frontend raw differs")
-        err = max(err, ds, db.max().item())
-    for (r0, h, w) in layout[:-1]:
-        gap = slice(r0 + h, r0 + h + fp.PACK_GAP)
-        require(bool((score[gap] == 0).all()) and not bool(keep[gap].any()),
-                "frontend gap rows are not zero")
-    return dict(max_abs_err=err,
-                ms=time_ms(lambda: fp.frontend_pass_packed(levels)),
-                plain_ms=time_ms(lambda: fp.frontend_pass_packed_ref(levels)))
+                f"{tag}: blur differs by {db.max().item()} at row {r0}")
+        err = max(err, db.max().item())
+    require(not bool(keep[outside].any())
+            and all(bool((x[outside] == 0).all()) for x in (score, blur, raw)),
+            f"{tag}: a cell outside the levels is not 0 / false")
+    ops = aten_ops(lambda: fp.frontend_pass_packed(levels))
+    require(ops == ["aten.empty.memory_format"] * 4,
+            f"{tag}: the wrapper dispatches {ops}")
+    if n_features is not None:
+        check_extract(img, dev, n_features)
+
+    n_px = sum(h * w for _, h, w in layout)
+    plan = fp.plan_of(levels)
+    r = kernel_times(
+        lambda: fp.frontend_pass_packed(levels), ("frontend_packed_kernel",),
+        4 * n_px + 13 * score.numel(), (OPS_FAST + OPS_NMS + OPS_BLUR) * n_px,
+        plain=lambda: fp.frontend_pass_packed_ref(levels))
+    if r["device_ms"] is not None:  # the profiler window: this kernel alone
+        require(len(r["device_ops"]) == 1
+                and "frontend_packed_kernel" in next(iter(r["device_ops"])),
+                f"{tag}: one call enqueues {r['device_ops']}")
+    print(f"{tag}: device ops of 20 calls {r['device_ops']}, aten ops of "
+          f"one call {ops}")
+    r.update(max_abs_err=err, levels=len(layout), level_px=n_px,
+             canvas=[total, img.shape[1]],
+             tiles=plan.n_tiles, zero_fill_blocks=plan.n_zero)
+    return r
+
+
+def check_extract(img, dev, n_features):
+    """`extract()` on the card through the kernel and through the plain
+    frontend: identical uv, level, score, mask and bits."""
+    import torch
+    from orb_slam3_ros2_tpu_torch.frontend import extractor as ex
+
+    cfg = ex.ExtractorConfig(n_features=n_features, n_levels=8,
+                             scale_factor=1.2, height=img.shape[0],
+                             width=img.shape[1])
+    extract = ex.make_extractor(cfg)
+    image = torch.from_numpy(img).to(dev)
+    got = extract(image)
+    with plain_versions():
+        ref = extract(image)
+    torch.cuda.synchronize()
+    for name in ("uv", "level", "score", "mask", "bits"):
+        require(torch.equal(getattr(got, name), getattr(ref, name)),
+                f"extract {img.shape[1]}x{img.shape[0]}: {name} differs "
+                f"between the kernel and the plain frontend")
+    print(f"extract {img.shape[1]}x{img.shape[0]}, {n_features} features: "
+          f"identical through the kernel and the plain frontend "
+          f"({int(got.mask.sum())} valid)")
 
 
 def _match_case(rng, N, M, radius):
@@ -261,13 +373,27 @@ def check_match(dev, N=1000):
         v = ref.valid
         err = max(err, (got.dist[v] - ref.dist[v]).abs().max().item())
     require(err == 0.0, f"match distances differ by {err}")
-    return dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: fm.match_window(*args)),
-        plain_ms=time_ms(lambda: fm.match_window_ref(*args)),
-        fuse_ms=time_ms(lambda: fm.match_window(*fuse_args, **fuse_kw)),
-        fuse_plain_ms=time_ms(
-            lambda: fm.match_window_ref(*fuse_args, **fuse_kw)))
+
+    def cost(a):
+        """Bytes and operations of one kernel call on a's inputs."""
+        _, ma, uva, _, mb, uvb, radius = a
+        M = uvb.shape[0]
+        win = (((uva[:, None, 0] - uvb[None, :, 0]).abs() <= radius)
+               & ((uva[:, None, 1] - uvb[None, :, 1]).abs() <= radius)
+               & ma[:, None] & mb[None, :])
+        return (41 * (N + M) + 12 * N + 4 * M,
+                OPS_MATCH_PAIR * N * M + OPS_MATCH_IN_WINDOW * int(win.sum()))
+
+    names = ("match_partial_kernel", "match_merge_kernel")
+    out = kernel_times(lambda: fm.match_window(*args), names, *cost(args),
+                       plain=lambda: fm.match_window_ref(*args))
+    fuse = kernel_times(lambda: fm.match_window(*fuse_args, **fuse_kw), names,
+                        *cost(fuse_args),
+                        plain=lambda: fm.match_window_ref(*fuse_args,
+                                                          **fuse_kw))
+    out.update(max_abs_err=err, fuse={k: v for k, v in fuse.items()
+                                      if k != "device_ops"})
+    return out
 
 
 def check_pose(dev, N=1000):
@@ -310,10 +436,13 @@ def check_pose(dev, N=1000):
     require(np.abs(got.R.cpu().numpy() - R_true).max() < 2e-3
             and np.abs(got.t.cpu().numpy() - t_true).max() < 1e-2,
             "pose kernel did not converge to the true pose")
-    return dict(
-        max_abs_err=max(dR, dt),
-        ms=time_ms(lambda: pose_opt_fused.optimize_pose_fused(*args)),
-        plain_ms=time_ms(lambda: pose_opt.optimize_pose(*args)))
+    out = kernel_times(
+        lambda: pose_opt_fused.optimize_pose_fused(*args),
+        ("pose_opt_kernel",), 26 * N + 48 + 64,
+        POSE_EVALS * OPS_POSE_POINT * N,
+        plain=lambda: pose_opt.optimize_pose(*args))
+    out.update(max_abs_err=max(dR, dt))
+    return out
 
 
 # --------------------------------------------------------------- phase 2b
@@ -334,6 +463,8 @@ def check_frontend_level(img, dev, record):
     from orb_slam3_ros2_tpu_torch.ops import frontend_level as fl
     from orb_slam3_ros2_tpu_torch.ops import orb_descriptor as desc
     from orb_slam3_ros2_tpu_torch.ops import pyramid as pyr
+    from orb_slam3_ros2_tpu_torch.tools.kernel_timing import (device_events,
+                                                              time_ms)
 
     levels = pyr.build_pyramid(torch.from_numpy(img).to(dev), 8, 1.2)
     fns = (fl.fast_nms, fl.blur7, fl.frontend_pass, fl.frontend_pass_lite)
@@ -366,20 +497,42 @@ def check_frontend_level(img, dev, record):
             err["frontend_pass"] = max(err["frontend_pass"], _interior_err(
                 m, m_r, BM, LEVEL_MOM_RTOL, LEVEL_MOM_ATOL, f"{name}, {tag}"))
     level0 = levels[0]
-    record["fast_nms"] = dict(
-        launches=launches[0], max_abs_err=err["fast_nms"],
-        ms=time_ms(lambda: fl.fast_nms(level0)),
-        plain_ms=time_ms(lambda: fl.fast_nms_ref(level0)))
-    record["blur7"] = dict(
-        launches=launches[1], max_abs_err=err["blur7"],
-        ms=time_ms(lambda: fl.blur7(level0)),
-        plain_ms=time_ms(lambda: fl.blur7_ref(level0)))
-    record["frontend_pass"] = dict(
-        launches=launches[2] + launches[3], max_abs_err=err["frontend_pass"],
-        ms=time_ms(lambda: fl.frontend_pass(level0)),
-        plain_ms=time_ms(lambda: fl.frontend_pass_ref(level0)),
-        lite_ms=time_ms(lambda: fl.frontend_pass_lite(level0)),
-        lite_plain_ms=time_ms(lambda: fl.frontend_pass_lite_ref(level0)))
+    n_px = level0.numel()
+    score_ops = OPS_FAST + OPS_NMS
+    # (record key, wrapper, plain version, bytes per pixel, ops per pixel);
+    # outputs: score f32 + keep bool, blur f32, m01/m10 f32 for the full pass
+    cases = (
+        ("fast_nms", fl.fast_nms, fl.fast_nms_ref, 4 + 5, score_ops),
+        ("blur7", fl.blur7, fl.blur7_ref, 4 + 4, OPS_BLUR),
+        ("frontend_pass", fl.frontend_pass, fl.frontend_pass_ref,
+         4 + 17, score_ops + OPS_BLUR + OPS_MOMENTS),
+        ("frontend_pass_lite", fl.frontend_pass_lite,
+         fl.frontend_pass_lite_ref,
+         4 + 9, score_ops + OPS_BLUR))
+    for (key, fn, ref, b_px, o_px), n_l in zip(cases, launches):
+        r = kernel_times(lambda: fn(level0), ("level_kernel",), b_px * n_px,
+                         o_px * n_px, plain=lambda: ref(level0))
+        r.update(launches=n_l, max_abs_err=err.get(key))
+        record[key] = r
+    # blur7's library yardstick: one conv2d with the 7x7 outer product of
+    # the same taps and the same zero padding (TF32 off, as the package
+    # sets it), timed here and called nowhere in the port
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.from_numpy(pyr._gauss_kernel1d(7, 2.0)).to(dev)
+    k2 = torch.outer(g, g)[None, None]
+
+    def conv():
+        return torch.nn.functional.conv2d(level0[None, None], k2,
+                                          padding=3)[0, 0]
+
+    record["blur7"]["library_ms"] = time_ms(conv)
+    record["blur7"]["library_device_ms"] = device_events(conv, ("",))[0]
+    record["blur7"]["library_max_abs_diff"] = (
+        conv() - fl.blur7(level0)).abs().max().item()
+    lite = record.pop("frontend_pass_lite")
+    record["frontend_pass"]["launches"] += lite["launches"]
+    record["frontend_pass"]["lite"] = {k: v for k, v in lite.items()
+                                       if k != "device_ops"}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -752,12 +905,24 @@ def main() -> int:
 
     img0 = render_sequence(n_frames=1, width=WIDTH, height=HEIGHT, fx=FX,
                            fy=FY, seed=1)[0][0]
-    record = dict(frontend_packed=check_frontend(img0, dev),
+    record = dict(frontend_packed=check_frontend(img0, dev, n_features=1000),
                   fused_match=check_match(dev), pose_opt_fused=check_pose(dev))
     check_frontend_level(img0, dev, record)
+    labels = dict(frontend_packed="frontend_packed 752x480",
+                  fused_match="fused_match 1000x4096 at 15 px",
+                  pose_opt_fused="pose_opt_fused N=1000",
+                  fast_nms="fast_nms 752x480 level",
+                  blur7="blur7 752x480 level",
+                  frontend_pass="frontend_pass 752x480 level")
     for name, r in record.items():
-        print(f"{name}: max_abs_err {r['max_abs_err']:.3g}, kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+        print_times(f"{labels[name]} (max_abs_err {r['max_abs_err']:.3g})", r)
+    print_times("SearchAndFuse match 1000x8192 at 4 px",
+                record["fused_match"]["fuse"])
+    print_times("frontend_pass_lite 752x480 level",
+                record["frontend_pass"]["lite"])
+    print(f"blur7 beside conv2d: conv2d device "
+          f"{record['blur7']['library_device_ms']} ms, max |conv2d - blur7| "
+          f"{record['blur7']['library_max_abs_diff']:.3g}")
     # the stereo and RGB-D paths' shapes, on the first frames of their clips
     t_render = time.perf_counter()
     clips = {name: sr.RIGS[name].render() for name in RIG_PHASES}
@@ -765,17 +930,17 @@ def main() -> int:
           f"{time.perf_counter() - t_render:.2f} s")
     shapes = {
         "frontend_packed 1241x376": check_frontend(
-            clips["kitti_stereo"][0][0], dev),
+            clips["kitti_stereo"][0][0], dev, n_features=2000),
         "frontend_packed 512x512": check_frontend(
             clips["tumvi_stereo"][0][0], dev),
         "fused_match 2000x4096 / 2000x8192": check_match(dev, N=2000),
         "pose_opt_fused N=2000": check_pose(dev, N=2000),
     }
     for name, r in shapes.items():
-        extra = (f", SearchAndFuse kernel {r['fuse_ms']:.4f} ms, plain "
-                 f"{r['fuse_plain_ms']:.4f} ms" if "fuse_ms" in r else "")
-        print(f"{name}: max_abs_err {r['max_abs_err']:.3g}, kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{extra}")
+        print_times(f"{name} (max_abs_err {r['max_abs_err']:.3g})", r)
+        if "fuse" in r:
+            print_times("SearchAndFuse match 2000x8192 at 4 px", r["fuse"])
+        r.pop("device_ops")
     for name in ("frontend_packed", "fused_match", "pose_opt_fused"):
         record[name]["max_abs_err"] = max(
             [record[name]["max_abs_err"]]
@@ -789,16 +954,17 @@ def main() -> int:
     rigs = {name: run_rig(dev, name, clips[name], record)
             for name in RIG_PHASES}
 
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "wrapper_ms")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=record[name]["launches"],
-                    max_abs_err=record[name]["max_abs_err"],
-                    ms=record[name]["ms"], plain_ms=record[name]["plain_ms"])
+                    library_ms=record[name].get("library_ms"),
+                    **{k: record[name][k] for k in keys})
                for name, (src, rep) in KERNELS.items()]
+    phase2 = {labels[name]: {k: v for k, v in r.items() if k != "device_ops"}
+              for name, r in record.items()}
     print(json.dumps({"frame_step_ms": ms_k, "frame_step_plain_ms": ms_p,
                       "slice_launches": slice_launches,
-                      "frontend_pass_lite_ms": record["frontend_pass"]["lite_ms"],
-                      "frontend_pass_lite_plain_ms":
-                          record["frontend_pass"]["lite_plain_ms"],
+                      "phase2": phase2,
                       "system": system, "phase2_shapes": shapes,
                       "stereo": rigs["kitti_stereo"],
                       "rgbd": rigs["tum1_rgbd"],

@@ -195,8 +195,8 @@ class System:
         pipelined: bool = False,
         device=None,
     ):
-        """As the JAX constructor, plus `device` (default: the first CUDA
-        device when there is one, else the CPU)."""
+        """As the JAX constructor, plus `device` (default "cuda"; the CPU
+        only when the caller passes device="cpu")."""
         del init_frame
         self.sensor = Sensor(sensor)
         if self.sensor not in (Sensor.MONOCULAR, Sensor.STEREO, Sensor.RGBD):
@@ -213,9 +213,11 @@ class System:
         if load_atlas or self.settings.load_atlas_from_file:
             _not_ported("loading a saved atlas", "8")
         self.use_viewer = use_viewer
-        self.device = torch.device(
-            device if device is not None
-            else ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"System(device={device!r}): no CUDA device is available; "
+                "pass device=\"cpu\" to run on the CPU")
         cam = self.settings.camera
         self.cam = cam
         self.ex_cfg = ex.ExtractorConfig(

@@ -4,6 +4,8 @@
     python -m orb_slam3_ros2_tpu_torch.tools.system_run [--device DEV]
         [--config NAME] [--profile] [--cpu-inputs] [--init-offsets K ...]
 
+--device      cuda (the default; without a card the run stops with an
+              error) or cpu.
 --config      euroc_mono (the default: `track_monocular`, phase 4),
               kitti_stereo, tum1_rgbd or tumvi_stereo (`track_stereo` /
               `track_rgbd`, phases 5-7; see `RIGS`). The three options
@@ -395,21 +397,24 @@ def run(device, profile: bool = False, cpu_inputs: bool = False,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available()
-                    else "cpu")
+    ap.add_argument("--device", default="cuda")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--cpu-inputs", action="store_true")
     ap.add_argument("--init-offsets", type=int, nargs="+", default=[0])
     ap.add_argument("--config", default="euroc_mono",
                     choices=["euroc_mono", *RIGS])
     args = ap.parse_args(argv)
+    cuda = torch.device(args.device).type == "cuda"
+    if cuda and not torch.cuda.is_available():
+        ap.error("no CUDA device is available; pass --device cpu to run on "
+                 "the CPU")
     if args.config != "euroc_mono":
         if args.profile or args.cpu_inputs or args.init_offsets != [0]:
             ap.error("--profile, --cpu-inputs and --init-offsets apply to "
                      "euroc_mono only")
         print(json.dumps(run_rig(args.config, args.device)))
         return
-    if args.profile and torch.device(args.device).type != "cuda":
+    if args.profile and not cuda:
         ap.error("--profile traces a CUDA device")
     for k in args.init_offsets:
         print(json.dumps(run(args.device, args.profile, args.cpu_inputs, k)))

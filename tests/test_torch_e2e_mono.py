@@ -135,3 +135,25 @@ def test_loop_closing_settings_and_lost_branch_raise(tmp_path, rendered):
     sys_.state = TrackingState.LOST
     with pytest.raises(NotImplementedError, match="item 8"):
         sys_.track_monocular(rendered[0][0], 0.0)
+
+
+@pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
+def test_system_without_a_card_raises(tmp_path, monkeypatch, device):
+    """The System runs on the card unless the caller asks for the CPU:
+    without one, the default device and any CUDA device raise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kwargs = {} if device is None else dict(device=device)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        System(None, mono_settings(tmp_path), **kwargs)
+    assert System(None, mono_settings(tmp_path),
+                  device="cpu").device.type == "cpu"
+
+
+def test_system_run_without_a_card_exits(monkeypatch, capsys):
+    from orb_slam3_ros2_tpu_torch.tools import system_run
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exit_info:
+        system_run.main([])
+    assert exit_info.value.code == 2
+    assert "--device cpu" in capsys.readouterr().err

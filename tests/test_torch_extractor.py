@@ -193,24 +193,156 @@ def test_extractor_matches_jax(n_levels):
     assert same.mean() >= 0.99, same.mean()
 
 
-@pytest.mark.cuda
-def test_frontend_kernel_matches_plain_on_gpu(cuda_device):
-    img = _texture(480, 752, seed=5).astype(np.float32)
-    levels = tpyr.build_pyramid(torch.from_numpy(img).to(cuda_device), 8, 1.2)
+WIDTHS = [(480, 752), (376, 1241), (512, 512), (480, 640)]
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _tile_of(plan, t):
+    """(level, y0, x0) of tile t, found as csrc/frontend_packed.cu finds
+    it: a walk over the levels' first tiles."""
+    lvl = 0
+    while lvl + 1 < len(plan.first) and t >= plan.first[lvl + 1]:
+        lvl += 1
+    ty, tx = divmod(t - plan.first[lvl], plan.tiles_x[lvl])
+    return lvl, ty * tfp.TH, tx * tfp.TW
+
+
+def _kernel_writes(plan):
+    """The cells csrc/frontend_packed.cu writes, per canvas cell: how many
+    writes carry a tile's value and how many write 0. A tile row writes
+    groups of 4 cells on the canvas's 16-byte grid: a whole group (one
+    16-byte store) when it lies inside the tile and the canvas row, with 0
+    for its cells right of the level, else its own cells one by one. A
+    zero-fill row writes the cells right of the level that owns the row
+    (all of a gap row): single cells up to the first 16-byte boundary,
+    whole groups, then single cells."""
+    W, TW, TH = plan.W0, tfp.TW, tfp.TH
+    value = np.zeros((plan.total, W), np.int32)
+    zero = np.zeros((plan.total, W), np.int32)
+    for t in range(plan.n_tiles):
+        lvl, y0, x0 = _tile_of(plan, t)
+        r0, h, w = plan.layout[lvl]
+        xe = min(x0 + TW, w)
+        for y in range(y0, min(y0 + TH, h)):
+            row = (r0 + y) * W
+            xs = x0 - ((row + x0) & 3) + 4 * np.arange(TW // 4 + 1)
+            xs = xs[(xs + 4 > x0) & (xs < xe)]
+            whole = (xs >= x0) & (xs + 4 <= x0 + TW) & (xs + 4 <= W)
+            assert ((row + xs[whole]) % 4 == 0).all()
+            cells = xs[:, None] + np.arange(4)
+            own = (cells >= x0) & (cells < xe)
+            np.add.at(value[r0 + y], cells[own], 1)
+            np.add.at(zero[r0 + y], cells[whole[:, None] & ~own], 1)
+    for r in range(plan.zero_row0, plan.total):
+        own = [w for r0, h, w in plan.layout if r0 <= r < r0 + h]
+        start = own[0] if own else 0
+        a = min(start + (4 - (r * W + start) % 4) % 4, W)
+        e = a + (W - a) // 4 * 4
+        assert a - start < 4 and W - e < 4 and (r * W + a) % 4 == 0
+        zero[r, start:a] += 1
+        zero[r, a:e] += 1
+        zero[r, e:] += 1
+    return value, zero
+
+
+@pytest.mark.parametrize("height,width", WIDTHS)
+def test_frontend_launch_plan_covers_the_canvas_once(height, width):
+    """At the four widths of the System's configurations (EuRoC, KITTI,
+    TUM-VI, TUM1), the kernel's tiles write each level cell's value
+    exactly once, the zero-fill blocks write every other cell, and no write
+    of 0 lands on a level cell."""
+    shapes = tpyr.level_shapes(height, width, 8, 1.2)
+    plan = tfp.launch_plan(tuple((h, w, w) for h, w in shapes))
+    layout, total = tfp.pack_layout(shapes)
+    assert plan.layout == layout and (plan.total, plan.W0) == (total, width)
+    in_level = np.zeros((total, width), bool)
+    for r0, h, w in layout:
+        in_level[r0:r0 + h, :w] = True
+    value, zero = _kernel_writes(plan)
+    np.testing.assert_array_equal(value, in_level.astype(np.int32))
+    assert (zero[in_level] == 0).all() and (zero[~in_level] >= 1).all()
+    assert plan.zero_row0 == height and plan.n_zero == _cdiv(
+        total - height, tfp.ZR)
+    assert plan.n_tiles == sum(
+        _cdiv(h, tfp.TH) * _cdiv(w, tfp.TW) for h, w in shapes)
+    # the C entry point's table: header, then one entry per level
+    table = list(plan.table)
+    assert table[:9] == [tfp.TW, tfp.TH, tfp.ZR, 8, total, width,
+                         plan.n_tiles, plan.n_zero, height]
+    for lvl, (r0, h, w) in enumerate(layout):
+        assert table[9 + 6 * lvl:15 + 6 * lvl] == [
+            r0, h, w, w, plan.tiles_x[lvl], plan.first[lvl]]
+
+
+@pytest.mark.parametrize("height,width", WIDTHS)
+def test_frontend_tile_level_lookup(height, width):
+    """Tile t belongs to the level whose tile range holds it, found as the
+    kernel finds it (a walk over the levels' first tiles), and is the
+    row-major tile t - first[level] of that level."""
+    shapes = tpyr.level_shapes(height, width, 8, 1.2)
+    plan = tfp.launch_plan(tuple((h, w, w + 3) for h, w in shapes))
+    t = 0
+    for lvl, (h, w) in enumerate(shapes):
+        for ty in range(_cdiv(h, tfp.TH)):
+            for tx in range(_cdiv(w, tfp.TW)):
+                assert _tile_of(plan, t) == (lvl, ty * tfp.TH, tx * tfp.TW)
+                t += 1
+    assert t == plan.n_tiles
+    assert list(plan.table)[12::6] == [w + 3 for _, w in shapes]  # pitches
+
+
+def test_frontend_ablation_edits_apply_to_the_kernel():
+    """tools/frontend_ablation.py builds its variants by editing the
+    kernel's source: each edit must still find its one place."""
+    from orb_slam3_ros2_tpu_torch.ops import cuda_lib
+    from orb_slam3_ros2_tpu_torch.tools import frontend_ablation
+
+    src = (cuda_lib.CSRC / "frontend_packed.cu").read_text()
+    variants = frontend_ablation.variants(src)
+    assert variants.pop("full") == src
+    assert len(set(variants.values())) == 4 and src not in variants.values()
+
+
+def test_frontend_launch_plan_refuses_a_level_wider_than_the_canvas():
+    with pytest.raises(ValueError, match="canvas"):
+        tfp.launch_plan(((20, 20, 20), (32, 32, 32)))
+
+
+def _check_kernel_against_plain(levels):
+    """One launch; then score exact on the whole canvas, keep exact 4 px
+    inside each level, raw exact on each level and 0 outside, blur within
+    the oracle's bounds 4 px inside each level, and every cell outside the
+    level regions 0 / false."""
     n = tfp.frontend_pass_packed.launches
     got = tfp.frontend_pass_packed(levels)
     ref = tfp.frontend_pass_packed_ref(levels)
     torch.cuda.synchronize()
     assert tfp.frontend_pass_packed.launches == n + 1
+    assert got[4] == ref[4] and got[0].shape == ref[0].shape
+    s, k, b, r = (x.cpu().numpy() for x in got[:4])
+    s_r, k_r, b_r, r_r = (x.cpu().numpy() for x in ref[:4])
+    np.testing.assert_array_equal(s, s_r)
+    np.testing.assert_array_equal(r, r_r)
+    outside = np.ones(s.shape, bool)
     B = 4
     for (r0, h, w) in got[4]:
+        outside[r0:r0 + h, :w] = False
         sl = np.s_[r0 + B:r0 + h - B, B:w - B]
-        s, k, b = (x.cpu().numpy() for x in got[:3])
-        s_r, k_r, b_r = (x.cpu().numpy() for x in ref[:3])
-        np.testing.assert_allclose(s[sl], s_r[sl], atol=1e-4)
         np.testing.assert_array_equal(k[sl], k_r[sl])
         np.testing.assert_allclose(b[sl], b_r[sl], rtol=1e-5, atol=1e-3)
-    np.testing.assert_array_equal(got[3].cpu().numpy(), ref[3].cpu().numpy())
+    assert not k[outside].any()
+    assert (s[outside] == 0).all() and (b[outside] == 0).all()
+    assert (r[outside] == 0).all()
+
+
+@pytest.mark.cuda
+def test_frontend_kernel_matches_plain_on_gpu(cuda_device):
+    img = _texture(480, 752, seed=5).astype(np.float32)
+    _check_kernel_against_plain(
+        tpyr.build_pyramid(torch.from_numpy(img).to(cuda_device), 8, 1.2))
 
 
 @pytest.mark.cuda
@@ -220,20 +352,8 @@ def test_frontend_kernel_matches_plain_on_gpu_at_rig_widths(cuda_device,
     """The 8-level pyramids of a KITTI (1241x376) and a TUM-VI (512x512)
     frame, at the bounds of the 752x480 case."""
     img = _texture(*shape, seed=6).astype(np.float32)
-    levels = tpyr.build_pyramid(torch.from_numpy(img).to(cuda_device), 8, 1.2)
-    got = tfp.frontend_pass_packed(levels)
-    ref = tfp.frontend_pass_packed_ref(levels)
-    torch.cuda.synchronize()
-    assert got[4] == ref[4] and got[0].shape[1] == shape[1]
-    B = 4
-    s, k, b = (x.cpu().numpy() for x in got[:3])
-    s_r, k_r, b_r = (x.cpu().numpy() for x in ref[:3])
-    for (r0, h, w) in got[4]:
-        sl = np.s_[r0 + B:r0 + h - B, B:w - B]
-        np.testing.assert_allclose(s[sl], s_r[sl], atol=1e-4)
-        np.testing.assert_array_equal(k[sl], k_r[sl])
-        np.testing.assert_allclose(b[sl], b_r[sl], rtol=1e-5, atol=1e-3)
-    np.testing.assert_array_equal(got[3].cpu().numpy(), ref[3].cpu().numpy())
+    _check_kernel_against_plain(
+        tpyr.build_pyramid(torch.from_numpy(img).to(cuda_device), 8, 1.2))
 
 
 def test_frontend_wrapper_raises_off_cpu_without_a_kernel():
