@@ -17,8 +17,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    observations); then again at the stereo and RGB-D paths' shapes: the
    8-level pyramids of a 1241x376 (KITTI) and a 512x512 (TUM-VI) frame,
    2000 features x 4096 visible landmarks at 15 px and x 8192 slots at 4 px
-   (max_dist 45, no ratio, not mutual), and 2000 pose observations. The
-   packed frontend must give score exactly on the whole canvas, keep
+   (max_dist 45, no ratio, not mutual), and 2000 and 4096 pose
+   observations. The pose kernel must agree with its plain version (R
+   within 5e-5, t within 5e-4, identical inliers and count), give the
+   same bits twice, dispatch only three `torch.empty` and views, and
+   enqueue itself alone; its latency floor (the same launch doing only
+   the 18 reductions) is printed. The packed frontend must give score exactly on the whole canvas, keep
    exactly 4 px inside each level, raw exactly on each level, 0 / false
    outside the levels, one kernel and no other device op per call, and
    the extractor's features bit for bit as through the plain version
@@ -196,7 +200,8 @@ def kernel_times(fn, names, n_bytes, n_ops, plain=None) -> dict:
 
 
 def aten_ops(fn) -> list:
-    """The aten operators one call of fn() dispatches, in order."""
+    """The aten operators (OpOverloads) one call of fn() dispatches, in
+    order."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Log(TorchDispatchMode):
@@ -205,7 +210,7 @@ def aten_ops(fn) -> list:
             self.ops = []
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.ops.append(str(func))
+            self.ops.append(func)
             return func(*args, **(kwargs or {}))
 
     with Log() as log:
@@ -217,7 +222,8 @@ def print_times(label: str, r: dict) -> None:
     dev = ("not measured" if r["device_ms"] is None
            else f"{r['device_ms']:.5f} ms")
     extra = "".join(f", {k} {r[k]:.5f} ms" for k in
-                    ("plain_ms", "library_ms") if k in r)
+                    ("plain_ms", "library_ms", "floor_ms")
+                    if r.get(k) is not None)
     print(f"{label}: device {dev} per launch, bound {r['bound_ms']:.5f} ms "
           f"({r['bound_by']}: {r['bytes']:.0f} B, {r['ops']:.0f} ops), "
           f"share {r['share']:.1%}, wrapper {r['wrapper_ms']:.5f} ms{extra}")
@@ -263,7 +269,7 @@ def check_frontend(img, dev, n_features=None):
     require(not bool(keep[outside].any())
             and all(bool((x[outside] == 0).all()) for x in (score, blur, raw)),
             f"{tag}: a cell outside the levels is not 0 / false")
-    ops = aten_ops(lambda: fp.frontend_pass_packed(levels))
+    ops = [str(op) for op in aten_ops(lambda: fp.frontend_pass_packed(levels))]
     require(ops == ["aten.empty.memory_format"] * 4,
             f"{tag}: the wrapper dispatches {ops}")
     if n_features is not None:
@@ -398,50 +404,60 @@ def check_match(dev, N=1000):
 
 def check_pose(dev, N=1000):
     """The pose kernel on N observations (30% outliers) against its plain
-    version and the true pose; returns max_abs_err and both times."""
+    version (R within 5e-5, t within 5e-4, identical inliers and count)
+    and the true pose; two launches bit-identical; one call dispatches
+    only `torch.empty` and views and enqueues the kernel alone. Returns
+    max_abs_err, both times, the plan and the latency floor: the same
+    launch shape doing only the 18 reduce-and-broadcasts."""
     import torch
     from orb_slam3_ros2_tpu_torch.backend import pose_opt, pose_opt_fused
-    from orb_slam3_ros2_tpu_torch.geom import lie
+    from orb_slam3_ros2_tpu_torch.tools.kernel_timing import (device_events,
+                                                              pose_case)
 
-    rng = np.random.default_rng(1 if N == 1000 else N)
-    X = np.stack([rng.uniform(-4, 4, N), rng.uniform(-3, 3, N),
-                  rng.uniform(4, 10, N)], -1).astype(np.float32)
-    fx = fy = 400.0
-    cx, cy = 320.0, 240.0
-    R_true = lie.so3_exp(torch.tensor([0.05, -0.1, 0.02])).numpy()
-    t_true = np.array([0.1, -0.05, 0.2], np.float32)
-    xc = X @ R_true.T + t_true
-    uv = np.stack([fx * xc[:, 0] / xc[:, 2] + cx,
-                   fy * xc[:, 1] / xc[:, 2] + cy], -1).astype(np.float32)
-    uv += rng.normal(0, 0.5, uv.shape).astype(np.float32)
-    out = rng.random(N) < 0.3
-    uv[out] += rng.uniform(-80, 80, (out.sum(), 2)).astype(np.float32)
-    mask = rng.random(N) > 0.05
-    invs2 = (1.2 ** (-2.0 * rng.integers(0, 8, N))).astype(np.float32)
-
-    def t(x):
-        return torch.from_numpy(np.asarray(x)).to(dev)
-
-    args = (torch.eye(3, device=dev), torch.zeros(3, device=dev), t(X), t(uv),
-            t(invs2), t(mask), fx, fy, cx, cy)
+    X, uv, invs2, mask, K, R_true, t_true = pose_case(
+        N, 1 if N == 1000 else N)
+    args = (torch.eye(3, device=dev), torch.zeros(3, device=dev),
+            *(torch.from_numpy(a).to(dev) for a in (X, uv, invs2, mask)), *K)
     got = pose_opt_fused.optimize_pose_fused(*args)
+    again = pose_opt_fused.optimize_pose_fused(*args)
     ref = pose_opt.optimize_pose(*args)
     torch.cuda.synchronize()
+    tag = f"pose N={N}"
     dR = (got.R - ref.R).abs().max().item()
     dt = (got.t - ref.t).abs().max().item()
-    require(dR <= 5e-5 and dt <= 5e-4, f"pose differs: dR {dR}, dt {dt}")
+    require(dR <= 5e-5 and dt <= 5e-4, f"{tag}: dR {dR}, dt {dt}")
     require(bool((got.inliers == ref.inliers).all())
+            and got.n_inliers.dtype == torch.int32
             and int(got.n_inliers) == int(ref.n_inliers),
-            "pose inlier sets differ")
+            f"{tag}: inlier sets differ")
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"{tag}: two launches differ")
     require(np.abs(got.R.cpu().numpy() - R_true).max() < 2e-3
             and np.abs(got.t.cpu().numpy() - t_true).max() < 1e-2,
-            "pose kernel did not converge to the true pose")
+            f"{tag}: the kernel did not converge to the true pose")
+    ops = aten_ops(lambda: pose_opt_fused.optimize_pose_fused(*args))
+    n_empty = sum(str(op) == "aten.empty.memory_format" for op in ops)
+    require(n_empty == 3 and all(str(op) == "aten.empty.memory_format"
+                                 or op.is_view for op in ops),
+            f"{tag}: the wrapper dispatches {ops}")
     out = kernel_times(
         lambda: pose_opt_fused.optimize_pose_fused(*args),
-        ("pose_opt_kernel",), 26 * N + 48 + 64,
+        ("pose_opt_kernel",), 26 * N + 48 + 68,
         POSE_EVALS * OPS_POSE_POINT * N,
         plain=lambda: pose_opt.optimize_pose(*args))
-    out.update(max_abs_err=max(dR, dt))
+    if out["device_ms"] is not None:  # the profiler window: this kernel alone
+        require(len(out["device_ops"]) == 1
+                and "pose_opt_kernel" in next(iter(out["device_ops"])),
+                f"{tag}: one call enqueues {out['device_ops']}")
+    floor_ms, _ = device_events(
+        lambda: pose_opt_fused.latency_floor(POSE_EVALS, N, dev),
+        ("pose_floor_kernel",))
+    print(f"{tag}: plan (threads, points a thread, cluster) "
+          f"{pose_opt_fused.plan_for(N)}, device ops of 20 calls "
+          f"{out['device_ops']}, aten ops of one call "
+          f"{[str(op) for op in ops]}, latency floor {floor_ms} ms")
+    out.update(max_abs_err=max(dR, dt), floor_ms=floor_ms,
+               plan=list(pose_opt_fused.plan_for(N)))
     return out
 
 
@@ -935,6 +951,7 @@ def main() -> int:
             clips["tumvi_stereo"][0][0], dev),
         "fused_match 2000x4096 / 2000x8192": check_match(dev, N=2000),
         "pose_opt_fused N=2000": check_pose(dev, N=2000),
+        "pose_opt_fused N=4096": check_pose(dev, N=4096),
     }
     for name, r in shapes.items():
         print_times(f"{name} (max_abs_err {r['max_abs_err']:.3g})", r)

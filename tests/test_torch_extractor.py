@@ -365,3 +365,19 @@ def test_frontend_wrapper_raises_off_cpu_without_a_kernel():
     with pytest.raises(ValueError, match="CUDA"):
         tfp.frontend_pass_packed(levels)
     assert tfp.frontend_pass_packed.launches == n
+
+
+def test_extract_diff_of_one_device_with_itself_is_zero():
+    """tools/extract_diff.py's stages on one device against the same
+    device: every difference 0, every keypoint common to both."""
+    from orb_slam3_ros2_tpu_torch.tools import extract_diff
+
+    img = _img(160, 224, seed=3)
+    cfg = tex.ExtractorConfig(n_features=200, n_levels=4, height=160,
+                              width=224)
+    d = extract_diff.stage_diffs(img, cfg, torch.device("cpu"))
+    assert d["pyramid_max_abs"] == [0.0] * 4
+    assert d["score_max_abs_own_pyramid"] == d["keep_flips_own_pyramid"] == 0
+    assert d["keypoints_only_card"] == d["keypoints_only_cpu"] == 0
+    assert d["common_keypoints"] == d["n_valid_cpu"] > 0
+    assert d["angle_max_abs"] == 0.0 and d["bit_flips_total"] == 0
