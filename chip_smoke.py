@@ -18,7 +18,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    8-level pyramids of a 1241x376 (KITTI) and a 512x512 (TUM-VI) frame,
    2000 features x 4096 visible landmarks at 15 px and x 8192 slots at 4 px
    (max_dist 45, no ratio, not mutual), and 2000 and 4096 pose
-   observations. The pose kernel must agree with its plain version (R
+   observations. The match kernel must give idx, valid and dist exactly
+   as its plain version (also over back-to-back calls on two inputs),
+   dispatch only three `torch.empty` and views, and enqueue itself alone; its
+   latency floor (the same launch without the sweeps) is printed at each
+   shape. The pose kernel must agree with its plain version (R
    within 5e-5, t within 5e-4, identical inliers and count), give the
    same bits twice, dispatch only three `torch.empty` and views, and
    enqueue itself alone; its latency floor (the same launch doing only
@@ -148,7 +152,8 @@ PEAK_BYTES_S, PEAK_OPS_S = 3.35e12, 67e12
 # 6 adds); the moment maps' prefix sums (4) and 31 disc rows (6 each, + 2)
 OPS_FAST, OPS_NMS, OPS_BLUR, OPS_MOMENTS = 162, 8, 26, 192
 # match: the window test of a pair (2 sub, 2 abs, 2 compare, the masks);
-# a pair inside the window: 8 XOR, 8 popcount, 8 adds, atomicMin, top-2
+# a pair inside the window: 8 XOR, 8 popcount, 8 adds, the row's top-2 and
+# the column's argmin
 OPS_MATCH_PAIR, OPS_MATCH_IN_WINDOW = 7, 28
 # pose LM: 3 rounds x (1 + 5) evaluations of ~235 operations a point
 # (transform 18, projection and residual 16, chi2/Huber/weights 15,
@@ -317,89 +322,86 @@ def check_extract(img, dev, n_features):
           f"({int(got.mask.sum())} valid)")
 
 
-def _match_case(rng, N, M, radius):
-    """Random ±1 descriptors with planted near-duplicates inside the window
-    and an exact-duplicate landmark pair (argmin tie, second-best edge)."""
-    sa = np.where(rng.integers(0, 2, (N, 256)), 1.0, -1.0).astype(np.float32)
-    sb = np.where(rng.integers(0, 2, (M, 256)), 1.0, -1.0).astype(np.float32)
-    uva = rng.uniform(0, [WIDTH, HEIGHT], (N, 2)).astype(np.float32)
-    uvb = rng.uniform(0, [WIDTH, HEIGHT], (M, 2)).astype(np.float32)
-    ma = rng.random(N) > 0.1
-    mb = rng.random(M) > 0.1
-    for i in range(min(400, N, M // 2)):
-        j = 2 * i
-        sb[j] = sa[i]
-        flips = rng.choice(256, size=rng.integers(0, 8), replace=False)
-        sb[j, flips] *= -1.0
-        uvb[j] = uva[i] + rng.uniform(-radius / 3, radius / 3, 2)
-        ma[i] = mb[j] = True
-    sb[M - 1] = sb[M - 2] = sa[7]
-    uvb[M - 1] = uvb[M - 2] = uva[7]
-    mb[M - 2] = mb[M - 1] = True
-    return sa, ma, uva, sb, mb, uvb
-
-
 def check_match(dev, N=1000):
     """Tracking's shape (N x 4096 visible landmarks, 15 px) under every
     ratio/mutual setting (N = 1000; at N = 2000 the default ratio 0.9,
     mutual), and SearchAndFuse's (N x all 8192 landmark slots, 4 px,
-    max_dist 45, no ratio test, not mutual). Returns max_abs_err and the
-    times of the tracking call and of the SearchAndFuse call."""
+    max_dist 45, no ratio test, not mutual): idx, valid and dist exact
+    against the plain version, also over three back-to-back calls on two
+    inputs (state left by a launch would show); one call dispatches only
+    three `torch.empty` and views and enqueues the kernel alone. Returns
+    max_abs_err, the times of the tracking call and of the SearchAndFuse
+    call, and each one's latency floor (the same launch without the
+    sweeps)."""
     import torch
     from orb_slam3_ros2_tpu_torch.ops import fused_match as fm
-    from orb_slam3_ros2_tpu_torch.ops import orb_descriptor as desc
+    from orb_slam3_ros2_tpu_torch.tools.kernel_timing import (device_events,
+                                                              match_tensors)
 
-    def t(x):
-        return torch.from_numpy(x).to(dev)
-
-    def case(seed, M, radius):
-        sa, ma, uva, sb, mb, uvb = _match_case(np.random.default_rng(seed),
-                                               N, M, radius)
-        return (desc.pack_bits(t(sa) > 0), t(ma), t(uva),
-                desc.pack_bits(t(sb) > 0), t(mb), t(uvb), radius)
-
-    args = case(0 if N == 1000 else 4, 4096, 15.0)
-    settings = [(args, dict(ratio=ratio, mutual=mutual))
+    args, kw = match_tensors(N, 4096, "track", 0 if N == 1000 else 4, dev)
+    settings = [(args, dict(kw, ratio=ratio, mutual=mutual))
                 for ratio in (0.9, None) for mutual in (True, False)
                 if N == 1000 or (ratio, mutual) == (0.9, True)]
-    fuse_args = case(2 if N == 1000 else 5, 8192, 4.0)
-    fuse_kw = dict(max_dist=45.0, ratio=None, mutual=False)
+    fuse_args, fuse_kw = match_tensors(N, 8192, "fuse",
+                                       2 if N == 1000 else 5, dev)
     settings.append((fuse_args, fuse_kw))
+    other, _ = match_tensors(N, 4096, "track", 7, dev)
+    # back to back, no synchronize between: the first input again after
+    # another, so that state left by a launch would change a result
+    settings += [(args, kw), (other, kw), (args, kw)]
+    gots = [fm.match_window(*a, **k) for a, k in settings]
     err = 0.0
-    for a, kw in settings:
-        got = fm.match_window(*a, **kw)
-        ref = fm.match_window_ref(*a, **kw)
+    for (a, k), got in zip(settings, gots):
+        ref = fm.match_window_ref(*a, **k)
         torch.cuda.synchronize()
-        what = f"M={a[3].shape[0]}, radius {a[6]}, {kw}"
+        what = f"{N}x{a[3].shape[0]}, {k}"
         n_ok = int(ref.valid.sum())
         require(n_ok > 300, f"match case {what} has only {n_ok} matches")
-        require(bool((got.valid == ref.valid).all())
-                and bool((got.idx == ref.idx).all()),
+        require(torch.equal(got.valid, ref.valid)
+                and torch.equal(got.idx, ref.idx),
                 f"match idx/valid differ ({what})")
         v = ref.valid
         err = max(err, (got.dist[v] - ref.dist[v]).abs().max().item())
     require(err == 0.0, f"match distances differ by {err}")
 
-    def cost(a):
-        """Bytes and operations of one kernel call on a's inputs."""
-        _, ma, uva, _, mb, uvb, radius = a
-        M = uvb.shape[0]
-        win = (((uva[:, None, 0] - uvb[None, :, 0]).abs() <= radius)
-               & ((uva[:, None, 1] - uvb[None, :, 1]).abs() <= radius)
+    def cost(a, k):
+        """Bytes and operations of one call on a's inputs: each input read
+        once (41 B a row or column), idx, dist and valid written once."""
+        _, ma, uva, _, mb, uvb = a
+        M, r = uvb.shape[0], k["radius"]
+        win = (((uva[:, None, 0] - uvb[None, :, 0]).abs() <= r)
+               & ((uva[:, None, 1] - uvb[None, :, 1]).abs() <= r)
                & ma[:, None] & mb[None, :])
-        return (41 * (N + M) + 12 * N + 4 * M,
+        return (41 * (N + M) + 9 * N,
                 OPS_MATCH_PAIR * N * M + OPS_MATCH_IN_WINDOW * int(win.sum()))
 
-    names = ("match_partial_kernel", "match_merge_kernel")
-    out = kernel_times(lambda: fm.match_window(*args), names, *cost(args),
-                       plain=lambda: fm.match_window_ref(*args))
-    fuse = kernel_times(lambda: fm.match_window(*fuse_args, **fuse_kw), names,
-                        *cost(fuse_args),
-                        plain=lambda: fm.match_window_ref(*fuse_args,
-                                                          **fuse_kw))
-    out.update(max_abs_err=err, fuse={k: v for k, v in fuse.items()
-                                      if k != "device_ops"})
-    return out
+    names = ("match_window_kernel",)
+    out = {}
+    for key, a, k in (("track", args, kw), ("fuse", fuse_args, fuse_kw)):
+        tag = f"match {N}x{a[3].shape[0]} at {k['radius']:g} px"
+        ops = aten_ops(lambda: fm.match_window(*a, **k))
+        empty = [str(op) == "aten.empty.memory_format" for op in ops]
+        require(sum(empty) == 3
+                and all(e or op.is_view for e, op in zip(empty, ops)),
+                f"{tag}: the wrapper dispatches {ops}")
+        ops = [str(op) for op in ops]
+        r = kernel_times(lambda: fm.match_window(*a, **k), names, *cost(a, k),
+                         plain=lambda: fm.match_window_ref(*a, **k))
+        if r["device_ms"] is not None:  # the profiler window: the kernel alone
+            require(len(r["device_ops"]) == 1
+                    and names[0] in next(iter(r["device_ops"])),
+                    f"{tag}: one call enqueues {r['device_ops']}")
+        r["floor_ms"], _ = device_events(
+            lambda: fm.latency_floor(*a, **k), names)
+        print(f"{tag}: plan {fm.plan_for(N, a[3].shape[0])}, "
+              f"{fm.blocks_for(N, a[3].shape[0])} blocks, device ops of 20 "
+              f"calls {r['device_ops']}, aten ops of one call {ops}")
+        print_times(tag, r)
+        out[key] = r
+    track = out["track"]
+    track.update(max_abs_err=err, fuse={k: v for k, v in out["fuse"].items()
+                                        if k != "device_ops"})
+    return track
 
 
 def check_pose(dev, N=1000):
@@ -932,8 +934,6 @@ def main() -> int:
                   frontend_pass="frontend_pass 752x480 level")
     for name, r in record.items():
         print_times(f"{labels[name]} (max_abs_err {r['max_abs_err']:.3g})", r)
-    print_times("SearchAndFuse match 1000x8192 at 4 px",
-                record["fused_match"]["fuse"])
     print_times("frontend_pass_lite 752x480 level",
                 record["frontend_pass"]["lite"])
     print(f"blur7 beside conv2d: conv2d device "
@@ -955,8 +955,6 @@ def main() -> int:
     }
     for name, r in shapes.items():
         print_times(f"{name} (max_abs_err {r['max_abs_err']:.3g})", r)
-        if "fuse" in r:
-            print_times("SearchAndFuse match 2000x8192 at 4 px", r["fuse"])
         r.pop("device_ops")
     for name in ("frontend_packed", "fused_match", "pose_opt_fused"):
         record[name]["max_abs_err"] = max(
