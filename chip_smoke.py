@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port on one NVIDIA GPU: every kernel against its
-plain version, the per-frame tracking slice, and the System in its
-monocular, stereo, RGB-D and fisheye-stereo configurations.
+plain version, the per-frame tracking slice, the System in its
+monocular, stereo, RGB-D and fisheye-stereo configurations, relocalization
+and the Atlas on the stock EuRoC settings, and loop closing.
 
     python3 chip_smoke.py
 
@@ -30,7 +31,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    exactly 4 px inside each level, raw exactly on each level, 0 / false
    outside the levels, one kernel and no other device op per call, and
    the extractor's features bit for bit as through the plain version
-   (752x480 and 1241x376).
+   (752x480 and 1241x376). Relocalization's shapes: the match kernel at
+   1000 features x 4096 visible landmarks at 80 px and 60 px (max_dist 45,
+   ratio 0.9, mutual), exact against its plain version, with its device
+   time, bound and wrapper time.
 2b. Per-level kernels: `fast_nms`, `blur7`, `frontend_pass` and
    `frontend_pass_lite` on each of the 8 levels of a 752x480 frame's
    pyramid, against their plain versions at the JAX oracle tests'
@@ -71,9 +75,44 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    Phases 5-7 also require each kernel on the path: the frontend kernel
    once per image, the pose kernel twice per tracked frame after the
    initializing one, the match kernel once per SearchAndFuse.
+8. Relocalization (`euroc_reloc` of `tools/system_run.py`): the phase 4
+   clip rendered through EuRoC cam0's distortion, 40 frames through
+   `System.track_monocular` on `config/Monocular/EuRoC.yaml` as published
+   (loop closing on), then the four scenarios of the JAX Atlas tests: a
+   blackout and frame 10 re-shown (recovers into map 0, drops the junk
+   map, centre within 0.1 m of its tracked centre), a blank frame (stays
+   LOST), the Atlas saved and loaded by a new System through
+   `System.LoadAtlasFromFile` (starts LOST, relocalizes within 10 frames
+   with no new initialization), and LOST_FRAMES_NEW_MAP + 8 noise frames
+   after the blackout's recovery (the resumed map is protected: a second
+   map spawns and map 0 keeps its keyframes); the same noise on a fresh
+   copy restarts the map in place when it has fewer than
+   MIN_KFS_KEEP_MAP keyframes (the stock fps of 20 gives the 40-frame map
+   about 6), and spawns a map otherwise. Prints ms per lost
+   frame with and without a recovery and the kernels' launches in the
+   lost frames; the match and pose calls of the first relocalization tries
+   are recorded and each is held against its plain version on the same
+   inputs (match: exact; pose: R within 5e-5, t within 5e-4, the inlier
+   sets differing in at most one point).
+9. Loop closing (`synth_loopy`, the JAX evaluation's row): 280 frames of
+   the leave-and-return room clip at 640x480, fx 450, fps 10, seed 3, once
+   with loop closing on and once off: at least one loop closed or map
+   merged, and Sim3-aligned ATE with it on below ATE with it off. Prints
+   both ATEs, tracked frames, ms per frame and the ms of the frames that
+   close a loop. On this clip tracking is lost during the excursion (in
+   the JAX System too), so the event is a map merge: its PnP refinement's
+   match and pose calls are recorded and held against their plain
+   versions as in phase 8. Global BA's memory on the final map follows the
+   live window, not the map's capacity.
+9b. In-map loop closure: `System._try_close_loop` on the corridor of the
+   JAX loop-closing tests (`system_run.run_corridor_loop`), on the card:
+   the loop closes on the second detection (Sim3 check, essential graph,
+   seam SearchAndFuse with the match kernel, global BA), and the
+   corrected keyframe centres agree with the same run on the CPU within
+   1e-3 m.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
-per-kernel JSON record (`launches`: the sum over the runs of phases 3-7,
+per-kernel JSON record (`launches`: the sum over the runs of phases 3-9b,
 each counted from 0 around its run; the per-level kernels: phase 2b; `ms`:
 device time per launch at the main-path shape, `wrapper_ms` the wrapper's
 time there), the line before that the card, and the one before that the
@@ -141,6 +180,25 @@ MIN_KF, MIN_LM, MIN_TRACKED = 4, 100, 20
 # same clips on a CPU: OK, 30/30/22 tracked, ATE 0.0125 / 0.0053 / 0.0158 m,
 # length ratio 1.0054 / 0.9966 / 0.9274 (PERF.md §4)
 RIG_PHASES = ("kitti_stereo", "tum1_rgbd", "tumvi_stereo")
+
+# phases 8 and 9: the pose kernel against its plain version on the
+# recorded relocalization and merge-PnP inputs (real matches: a point at
+# the chi2 threshold may classify either way)
+RECORDED_POSE_DR, RECORDED_POSE_DT, RECORDED_POSE_INLIER_FLIPS = (
+    5e-5, 5e-4, 1)
+FX_LOOPY = 450.0  # the synth_loopy camera (640x480, centred)
+# phase 9: the JAX System on the same clip on a CPU: ATE 0.337 m with loop
+# closing on (its event a map merge, as the port's; 164 of 280 frames
+# tracked), 0.3929 m off (PERF.md §4)
+# phase 9: an accept/reject decision of the pose LM (candidate cost
+# against the accepted cost) closer than this, relative, is inside the f32
+# rounding of the cost (its residuals are differences of ~300 px
+# coordinates, ulp 3e-5 px, so a 1 px residual's chi2 carries ~6e-5), and
+# the kernel, summing in another order, may take it the other way
+POSE_DECISION_NOISE = 1e-5
+# phase 9b: the corridor's corrected keyframe centres on the card against
+# the same run on the CPU (m)
+CORRIDOR_CENTRE_M = 1e-3
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 operations/s
 # outside the tensor cores (integer and min/max operations are counted at
@@ -365,15 +423,7 @@ def check_match(dev, N=1000):
     require(err == 0.0, f"match distances differ by {err}")
 
     def cost(a, k):
-        """Bytes and operations of one call on a's inputs: each input read
-        once (41 B a row or column), idx, dist and valid written once."""
-        _, ma, uva, _, mb, uvb = a
-        M, r = uvb.shape[0], k["radius"]
-        win = (((uva[:, None, 0] - uvb[None, :, 0]).abs() <= r)
-               & ((uva[:, None, 1] - uvb[None, :, 1]).abs() <= r)
-               & ma[:, None] & mb[None, :])
-        return (41 * (N + M) + 9 * N,
-                OPS_MATCH_PAIR * N * M + OPS_MATCH_IN_WINDOW * int(win.sum()))
+        return match_cost(a, k["radius"])
 
     names = ("match_window_kernel",)
     out = {}
@@ -402,6 +452,55 @@ def check_match(dev, N=1000):
     track.update(max_abs_err=err, fuse={k: v for k, v in out["fuse"].items()
                                         if k != "device_ops"})
     return track
+
+
+def match_cost(a, radius: float):
+    """Bytes and operations of one match call on a's inputs: each input
+    read once (41 B a row or column), idx, dist and valid written once;
+    the window test on every pair, the distance and top-2 on the pairs
+    inside the window."""
+    _, ma, uva, _, mb, uvb = a
+    N, M = uva.shape[0], uvb.shape[0]
+    win = (((uva[:, None, 0] - uvb[None, :, 0]).abs() <= radius)
+           & ((uva[:, None, 1] - uvb[None, :, 1]).abs() <= radius)
+           & ma[:, None] & mb[None, :])
+    return (41 * (N + M) + 9 * N,
+            OPS_MATCH_PAIR * N * M + OPS_MATCH_IN_WINDOW * int(win.sum()))
+
+
+def check_match_reloc(dev, N=1000, M=4096):
+    """Relocalization's two match shapes (N x M visible landmarks at 80 px
+    from the last pose and at 60 px from a BoW keyframe, max_dist 45,
+    ratio 0.9, mutual): idx, valid and dist exact against the plain
+    version; the device time, bound and wrapper time of each. Returns the
+    80 px times with the 60 px ones under "reloc60"."""
+    import torch
+    from orb_slam3_ros2_tpu_torch.ops import fused_match as fm
+    from orb_slam3_ros2_tpu_torch.tools.kernel_timing import match_tensors
+
+    out, err = {}, 0.0
+    for key, seed in (("reloc80", 11), ("reloc60", 12)):
+        a, k = match_tensors(N, M, key, seed, dev)
+        got = fm.match_window(*a, **k)
+        ref = fm.match_window_ref(*a, **k)
+        torch.cuda.synchronize()
+        tag = f"match {N}x{M} at {k['radius']:g} px (relocalization)"
+        n_ok = int(ref.valid.sum())
+        require(n_ok > 300, f"{tag}: only {n_ok} matches")
+        require(torch.equal(got.valid, ref.valid)
+                and torch.equal(got.idx, ref.idx), f"{tag}: idx/valid differ")
+        v = ref.valid
+        err = max(err, (got.dist[v] - ref.dist[v]).abs().max().item())
+        r = kernel_times(lambda: fm.match_window(*a, **k),
+                         ("match_window_kernel",), *match_cost(a, k["radius"]),
+                         plain=lambda: fm.match_window_ref(*a, **k))
+        r.pop("device_ops")
+        print_times(tag, r)
+        out[key] = r
+    require(err == 0.0, f"relocalization match distances differ by {err}")
+    r = out.pop("reloc80")
+    r.update(max_abs_err=err, reloc60=out["reloc60"])
+    return r
 
 
 def check_pose(dev, N=1000):
@@ -773,10 +872,7 @@ def drive(slam, step, n_frames: int, label: str) -> dict:
             n_kf = int(slam.map.n_kf)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            try:
-                T = step(k)
-            except NotImplementedError as e:  # the LOST branch
-                raise PhaseError(f"{label} frame {k}: tracking was lost ({e})")
+            T = step(k)
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - t0) * 1e3)
             require(T.shape == (4, 4) and np.isfinite(T).all(),
@@ -887,6 +983,363 @@ def run_rig(dev, name, frames, record):
     return out
 
 
+# ------------------------------------------------------------ phases 8-9
+
+COUNTED = ("frontend_packed", "fused_match", "pose_opt_fused")
+
+
+def _counters():
+    from orb_slam3_ros2_tpu_torch.backend import pose_opt_fused
+    from orb_slam3_ros2_tpu_torch.ops import fused_match as fm
+    from orb_slam3_ros2_tpu_torch.ops import frontend_packed as fp
+
+    return (fp.frontend_pass_packed, fm.match_window,
+            pose_opt_fused.optimize_pose_fused)
+
+
+@contextlib.contextmanager
+def recording(owner, name: str, limit: int = 4):
+    """For the block, the match and pose wrappers are replaced by
+    recorders that call them (so they launch and count as before) and keep
+    the (args, kwargs) of their first `limit` calls made inside
+    `owner.name` (a System method or a module function, wrapped for the
+    block). Yields {"match": [...], "pose": [...]}."""
+    from orb_slam3_ros2_tpu_torch.backend import pose_opt_fused
+    from orb_slam3_ros2_tpu_torch.ops import fused_match as fm
+
+    match, pose = fm.match_window, pose_opt_fused.optimize_pose_fused
+    scoped = getattr(owner, name)
+    inside, calls = [False], {"match": [], "pose": []}
+
+    def in_scope(*args, **kwargs):
+        inside[0] = True
+        try:
+            return scoped(*args, **kwargs)
+        finally:
+            inside[0] = False
+
+    class Recorder:
+        def __init__(self, kind, fn):
+            self.kind, self.fn = kind, fn
+
+        def __call__(self, *args, **kwargs):
+            if inside[0] and len(calls[self.kind]) < limit:
+                calls[self.kind].append((args, kwargs))
+            return self.fn(*args, **kwargs)
+
+        # the wrapper counts through its module-level name, this object
+        @property
+        def launches(self):
+            return self.fn.launches
+
+        @launches.setter
+        def launches(self, n):
+            self.fn.launches = n
+
+    fm.match_window = Recorder("match", match)
+    pose_opt_fused.optimize_pose_fused = Recorder("pose", pose)
+    setattr(owner, name, in_scope)
+    try:
+        yield calls
+    finally:
+        fm.match_window, pose_opt_fused.optimize_pose_fused = match, pose
+        setattr(owner, name, scoped)
+
+
+def plain_pose_paths(args, kw, noise: float):
+    """`pose_opt.optimize_pose`'s loop on the inputs of one call: first as
+    it runs (its result, bit for bit), then once for each accept/reject
+    decision whose margin |cost_c - cost| / cost is under `noise`, with
+    that one decision taken the other way. Yields (label, R, t, inliers)."""
+    import torch
+    from orb_slam3_ros2_tpu_torch.backend import pose_opt, residuals
+    from orb_slam3_ros2_tpu_torch.geom import lie
+    from orb_slam3_ros2_tpu_torch.ops.chol_small import cholesky_solve_small
+
+    R0, t0, X, uv, inv_sigma2, mask, fx, fy, cx, cy = args
+    n_rounds = kw.get("n_rounds", 3)
+    iters = kw.get("iters_per_round", 5)
+    chi2_th = kw.get("chi2_th", residuals.CHI2_MONO)
+
+    def run(flip):
+        eye6 = torch.eye(6, dtype=torch.float32, device=X.device)
+        lam = torch.tensor(1e-3, dtype=torch.float32, device=X.device)
+        w_base = inv_sigma2 * mask.to(torch.float32)
+        R, t, close, step = R0, t0, [], 0
+        chi2v = torch.zeros_like(inv_sigma2)
+        posv = torch.ones_like(inv_sigma2, dtype=torch.bool)
+        for rnd in range(n_rounds):
+            w_active = w_base if rnd == 0 else w_base * (
+                (chi2v <= chi2_th) & posv & mask)
+            H, b, cost, chi2v, posv = pose_opt._eval_system(
+                R, t, X, uv, inv_sigma2, w_active, fx, fy, cx, cy)
+            for _ in range(iters):
+                Hd = H + lam * torch.diag(torch.diag(H)) + 1e-9 * eye6
+                R_c, t_c = lie.se3_retract(R, t,
+                                           -cholesky_solve_small(Hd, b))
+                R_c = lie.se3_normalize(R_c)
+                H_c, b_c, cost_c, chi2_c, pos_c = pose_opt._eval_system(
+                    R_c, t_c, X, uv, inv_sigma2, w_active, fx, fy, cx, cy)
+                margin = abs(float(cost_c - cost)) / float(cost)
+                if margin < noise:
+                    close.append((step, margin))
+                better = (cost_c < cost) ^ (step == flip)
+                step += 1
+                R, t = torch.where(better, R_c, R), torch.where(better, t_c, t)
+                H, b = torch.where(better, H_c, H), torch.where(better, b_c, b)
+                cost = torch.where(better, cost_c, cost)
+                chi2v = torch.where(better, chi2_c, chi2v)
+                posv = torch.where(better, pos_c, posv)
+                lam = torch.where(better, lam * 0.5, lam * 4.0).clamp(
+                    1e-7, 1e2)
+        return R, t, (chi2v <= chi2_th) & posv & mask, close
+
+    R, t, inl, close = run(-1)
+    ref = pose_opt.optimize_pose(*args, **kw)
+    require(torch.equal(R, ref.R) and torch.equal(t, ref.t),
+            "plain_pose_paths: the copied loop differs from optimize_pose")
+    yield "plain", R, t, inl
+    for step, margin in close:
+        R, t, inl, _ = run(step)
+        yield (f"plain with decision {step} flipped (margin {margin:.2e})",
+               R, t, inl)
+
+
+def check_recorded(calls, label: str, decision_noise=None) -> list:
+    """Each recorded match call against `match_window_ref` (exact) and each
+    recorded pose call against `pose_opt.optimize_pose` (RECORDED_POSE_*),
+    on the same inputs; these launches come after the counts are read.
+    With `decision_noise`, a pose call may instead agree (to the same
+    tolerances) with the plain path that takes one decision inside that
+    noise the other way (`plain_pose_paths`). Returns one line per call."""
+    import torch
+    from orb_slam3_ros2_tpu_torch.backend import pose_opt_fused
+    from orb_slam3_ros2_tpu_torch.ops import fused_match as fm
+
+    checked = []
+    for args, kw in calls["match"]:
+        got = fm.match_window(*args, **kw)
+        ref = fm.match_window_ref(*args, **kw)
+        v = ref.valid
+        require(torch.equal(got.idx, ref.idx) and torch.equal(got.valid, v)
+                and torch.equal(got.dist[v], ref.dist[v]),
+                f"{label}: match at {kw['radius']} px differs from its "
+                f"plain version")
+        checked.append(f"match {args[0].shape[0]}x{args[3].shape[0]} at "
+                       f"{kw['radius']:g} px: {int(v.sum())} matches")
+    for args, kw in calls["pose"]:
+        got = pose_opt_fused.optimize_pose_fused(*args, **kw)
+        paths = plain_pose_paths(args, kw, decision_noise or 0.0)
+        seen = []
+        for name, R, t, inl in paths:
+            dR = (got.R - R).abs().max().item()
+            dt = (got.t - t).abs().max().item()
+            flips = int((got.inliers != inl).sum())
+            seen.append(f"{name}: dR {dR:.2e}, dt {dt:.2e}, {flips} flips")
+            if (dR <= RECORDED_POSE_DR and dt <= RECORDED_POSE_DT
+                    and flips <= RECORDED_POSE_INLIER_FLIPS):
+                break
+        else:
+            require(False, f"{label}: pose kernel vs plain ({kw}): {seen}")
+        checked.append(f"pose N={args[2].shape[0]} ({int(args[5].sum())} "
+                       f"matched, {kw or 'defaults'}): {'; '.join(seen)}")
+    return checked
+
+
+def run_reloc(dev, record):
+    """Phase 8 through `system_run.run_reloc`, with every kernel counter
+    from 0 around it; the match and pose calls made inside `_relocalize`
+    (the first four of each) are recorded and, after the counts are read,
+    held against their plain versions. Every bar raises PhaseError."""
+    from orb_slam3_ros2_tpu_torch.runtime import system as sysm
+    from orb_slam3_ros2_tpu_torch.tools import system_run as sr
+
+    t_render = time.perf_counter()
+    frames = sr.render_euroc_distorted()
+    print(f"euroc_reloc: rendered the distorted clip in "
+          f"{time.perf_counter() - t_render:.2f} s")
+    for fn in _counters():
+        fn.launches = 0
+    with recording(sysm.System, "_relocalize") as calls:
+        r = sr.run_reloc(dev, frames)
+    launches = dict(zip(COUNTED, (fn.launches for fn in _counters())))
+    r["launches"] = launches
+    a, c, d = r["blackout"], r["reload"], r["new_map"]
+    print(f"euroc_reloc: init at frame {r['init_frame']}, {r['n_kf']} "
+          f"keyframes, {r['n_tracked']} tracked, ATE {r['ate_m']:.4f} m, "
+          f"median frame {r['median_frame_ms']:.2f} ms; launches {launches}")
+    print(f"euroc_reloc: blackout -> {a['state']} in map {a['active']} of "
+          f"{a['n_maps']}, centre {a['centre_err_m']:.4f} m off, "
+          f"{a['frame']['ms']:.2f} ms; blank -> {r['blank']['state']} "
+          f"({r['blank']['frame']['ms']:.2f} ms); reload -> {c['state']} "
+          f"after {c['frames_to_recover']} frames; new map after "
+          f"{d['lost_frames']} lost frames -> {d['n_maps']} maps (map 0 "
+          f"{d['map0_n_kf']} keyframes); fresh copy after "
+          f"{r['restart']['lost_frames']} lost frames -> "
+          f"{r['restart']['n_maps']} maps, {r['restart']['state']}")
+    print(f"euroc_reloc: ms per lost frame {r['lost_frame_ms']}, launches "
+          f"in the lost frames {r['lost_launches']}")
+    failed = sr.reloc_failures(r)
+    require(not failed, f"euroc_reloc: {failed}")
+    require(r["lost_launches"]["match"] >= 1
+            and r["lost_launches"]["pose"] >= 1,
+            f"euroc_reloc: lost frames launched {r['lost_launches']}")
+    require(calls["match"] and calls["pose"],
+            "euroc_reloc: no relocalization match or pose call recorded")
+    checked = check_recorded(calls, "euroc_reloc")
+    print(f"euroc_reloc: kernels against their plain versions on the "
+          f"recorded relocalization inputs: {checked}")
+    r["checked"] = checked
+    add_launches(record, launches)
+    return r
+
+
+def run_loopy(dev, record):
+    """Phase 9: the synth_loopy clip with loop closing on, then off, each
+    run with every kernel counter from 0 around it; in the run with loop
+    closing on, the match and pose calls of a merge's PnP refinement
+    (`merging.refine_weld_pnp`) are recorded and held against their plain
+    versions after the counts are read. Every bar raises PhaseError."""
+    from orb_slam3_ros2_tpu_torch.atlas import merging
+    from orb_slam3_ros2_tpu_torch.tools import system_run as sr
+
+    t_render = time.perf_counter()
+    frames = sr.render_loopy()
+    print(f"synth_loopy: rendered {len(frames[0])} frames in "
+          f"{time.perf_counter() - t_render:.2f} s")
+    out = {}
+    for on in (True, False):
+        for fn in _counters():
+            fn.launches = 0
+        with (recording(merging, "refine_weld_pnp") if on
+              else contextlib.nullcontext()) as calls:
+            r, slam = sr.run_loopy(dev, frames, on)
+        r["launches"] = dict(zip(COUNTED,
+                                 (fn.launches for fn in _counters())))
+        add_launches(record, r["launches"])
+        tag = "on" if on else "off"
+        print(f"synth_loopy (loop closing {tag}): ATE {r['ate_m']:.4f} m, "
+              f"{r['n_tracked']}/{r['frames']} tracked, {r['loops_closed']} "
+              f"loops closed, {r['maps_merged']} maps merged, {r['n_maps']} "
+              f"maps, {r['n_kf']} keyframes; median frame "
+              f"{r['median_frame_ms']:.2f} ms, mean {r['mean_frame_ms']:.2f}"
+              f" ms; loop/merge frames {r['events']}; launches "
+              f"{r['launches']}")
+        require(r["launches"]["frontend_packed"] == r["frames"],
+                f"synth_loopy ({tag}): frontend kernel launched "
+                f"{r['launches']['frontend_packed']} times")
+        out[tag] = r
+        if on:
+            loop_map, merge_calls = slam.map, calls
+    on, off = out["on"], out["off"]
+    require(on["loops_closed"] + on["maps_merged"] >= 1,
+            "synth_loopy: no loop closed and no map merged")
+    require(off["loops_closed"] + off["maps_merged"] == 0,
+            "synth_loopy: loop closing off still closed a loop")
+    require(on["ate_m"] < off["ate_m"],
+            f"synth_loopy: ATE with loop closing {on['ate_m']:.4f} m is not "
+            f"below ATE without {off['ate_m']:.4f} m")
+    if on["maps_merged"]:
+        require(len(merge_calls["pose"]) >= 2,
+                f"synth_loopy: the merge ran {len(merge_calls['pose'])} "
+                f"PnP pose calls (2 expected)")
+        on["checked"] = check_recorded(merge_calls, "synth_loopy merge",
+                                       decision_noise=POSE_DECISION_NOISE)
+        print(f"synth_loopy: kernels against their plain versions on the "
+              f"recorded merge PnP inputs: {on['checked']}")
+    out["global_ba"] = check_global_ba(dev, loop_map)
+    return out
+
+
+def run_corridor(dev, record):
+    """Phase 9b: an in-map loop closure on the card, through
+    `System._try_close_loop` on the corridor of the JAX loop-closing tests
+    (`system_run.run_corridor_loop`: keyframe 17 starts the temporal
+    consistency, keyframe 18 closes), with every kernel counter from 0
+    around it; then the same run on the CPU (plain versions). Requires the
+    loop closed on the second call, the seam fusion's match launches, a
+    finite map and the corrected centres of keyframes 2, 17 and 18 within
+    CORRIDOR_CENTRE_M of the CPU's. Every bar raises PhaseError."""
+    from orb_slam3_ros2_tpu_torch.tools import system_run as sr
+
+    for fn in _counters():
+        fn.launches = 0
+    r, _ = sr.run_corridor_loop(dev)
+    r["launches"] = dict(zip(COUNTED, (fn.launches for fn in _counters())))
+    ref, _ = sr.run_corridor_loop("cpu")
+    d = max(float(np.abs(np.subtract(r["centres"][k], ref["centres"][k])
+                         ).max()) for k in r["centres"])
+    r["centre_diff_cpu_m"] = d
+    print(f"corridor loop: loops closed after keyframes 17, 18: "
+          f"{r['loops_closed_after']} (CPU {ref['loops_closed_after']}); "
+          f"ms of the calls {[round(x, 2) for x in r['call_ms']]}; "
+          f"centres of keyframes 2/17/18 {r['centres']}, max diff from the "
+          f"CPU {d:.3g} m; launches {r['launches']}")
+    require(r["loops_closed_after"] == [0, 1] and r["last_loop_kf"] == 18,
+            f"corridor loop: loops closed {r['loops_closed_after']}, last "
+            f"loop keyframe {r['last_loop_kf']}")
+    require(r["finite"], "corridor loop: non-finite map after the closure")
+    require(r["launches"]["fused_match"] >= 2,
+            f"corridor loop: the seam fusion launched the match kernel "
+            f"{r['launches']['fused_match']} times")
+    require(d <= CORRIDOR_CENTRE_M,
+            f"corridor loop: centres {d} m from the CPU run's")
+    add_launches(record, r["launches"])
+    return r
+
+
+def check_global_ba(dev, m):
+    """`tracking.global_ba` as `System._run_global_ba` runs it (the live
+    keyframes padded to a power of 2, keyframe 0 fixed, 8 iterations) on
+    the map `m` that phase 9's loop-closing run ends with: its peak device
+    memory with the map at its capacity of keyframes and with the keyframe
+    arrays cut to the window (equal: the memory follows the window, not
+    `max_kf`), and the time and peak memory of the widest window, 256
+    keyframes (the map's keyframes repeated into every slot). Returns the
+    measurements."""
+    import torch
+    from orb_slam3_ros2_tpu_torch.frontend import tracking as trk
+
+    cam = (FX_LOOPY, FX_LOOPY, 320.0, 240.0)
+    n_kf = int(m.n_kf)
+    K = m.kf_valid.shape[0]
+    B = trk.global_ba_window(n_kf, K, dev)[0].shape[0]
+
+    def peak(mm, n_live):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = trk.global_ba(mm, n_live, *cam, n_iters=8)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        require(bool(torch.isfinite(out.kf_t).all()
+                     and torch.isfinite(out.lm_X).all()),
+                f"global BA over {n_live} keyframes: non-finite map")
+        return (torch.cuda.max_memory_allocated() - base) / 2**20, ms
+
+    cut = m._replace(**{f: getattr(m, f)[:B] for f in m._fields
+                        if f.startswith("kf_")})
+    full_mib, full_ms = peak(m, n_kf)
+    cut_mib, cut_ms = peak(cut, n_kf)
+    rep = torch.arange(K, device=dev) % n_kf
+    wide = m._replace(**{f: getattr(m, f)[rep] for f in m._fields
+                         if f.startswith("kf_")})
+    wide = wide._replace(n_kf=torch.tensor(K, dtype=torch.int32, device=dev))
+    wide_mib, wide_ms = peak(wide, K)
+    out = dict(n_kf=n_kf, window=B, max_kf=K, peak_mib=full_mib,
+               peak_mib_cut_to_window=cut_mib, ms=full_ms,
+               window_256_ms=wide_ms, window_256_peak_mib=wide_mib)
+    print(f"global BA: {n_kf} keyframes in a window of {B}: peak "
+          f"{full_mib:.1f} MiB with {K} keyframe slots, {cut_mib:.1f} MiB "
+          f"with {B}; {full_ms:.1f} ms; a window of {K}: {wide_ms:.1f} ms, "
+          f"peak {wide_mib:.1f} MiB")
+    require(abs(full_mib - cut_mib) <= 0.05 * cut_mib + 1.0,
+            f"global BA memory follows max_kf: {full_mib:.1f} MiB against "
+            f"{cut_mib:.1f} MiB")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -952,10 +1405,11 @@ def main() -> int:
         "fused_match 2000x4096 / 2000x8192": check_match(dev, N=2000),
         "pose_opt_fused N=2000": check_pose(dev, N=2000),
         "pose_opt_fused N=4096": check_pose(dev, N=4096),
+        "fused_match 1000x4096 at 80 px / 60 px": check_match_reloc(dev),
     }
     for name, r in shapes.items():
         print_times(f"{name} (max_abs_err {r['max_abs_err']:.3g})", r)
-        r.pop("device_ops")
+        r.pop("device_ops", None)
     for name in ("frontend_packed", "fused_match", "pose_opt_fused"):
         record[name]["max_abs_err"] = max(
             [record[name]["max_abs_err"]]
@@ -968,6 +1422,9 @@ def main() -> int:
     system = run_system(dev, record)
     rigs = {name: run_rig(dev, name, clips[name], record)
             for name in RIG_PHASES}
+    reloc = run_reloc(dev, record)
+    loopy = run_loopy(dev, record)
+    loopy["corridor"] = run_corridor(dev, record)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "wrapper_ms")
@@ -983,7 +1440,8 @@ def main() -> int:
                       "system": system, "phase2_shapes": shapes,
                       "stereo": rigs["kitti_stereo"],
                       "rgbd": rigs["tum1_rgbd"],
-                      "fisheye_stereo": rigs["tumvi_stereo"]}))
+                      "fisheye_stereo": rigs["tumvi_stereo"],
+                      "euroc_reloc": reloc, "synth_loopy": loopy}))
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

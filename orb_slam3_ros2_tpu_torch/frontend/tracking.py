@@ -158,18 +158,9 @@ def track_frame(m: ms.MapState, feat_uv, feat_bits, feat_mask, feat_level,
 
 # ---------------------------------------------------------------- mapping half
 #
-# Port of `orb_slam3_ros2_tpu/frontend/tracking.py:270-651` (all but
-# `global_ba`, which only loop closing reaches). Keyframe ids may be 0-dim
-# device tensors; rows are read with `ms.row`, so none of these functions
-# makes a host sync.
-
-
-def _top_k_stable(w: torch.Tensor, k: int):
-    """(values, indices) of the k largest, the lowest index first among
-    ties, as `lax.top_k` orders them (a stable descending sort; `torch.topk`
-    makes no such promise)."""
-    order = torch.sort(w, descending=True, stable=True).indices[:k]
-    return w[order], order
+# Port of `orb_slam3_ros2_tpu/frontend/tracking.py:270-651`. Keyframe ids
+# may be 0-dim device tensors; rows are read with `ms.row`, so none of
+# these functions makes a host sync.
 
 
 def triangulate_between(
@@ -318,7 +309,7 @@ def select_local_window(m: ms.MapState, new_kf, n_window: int,
 
     w_new = torch.where(m.kf_valid & (ids_all != new_kf), ms.row(C, new_kf),
                         -1.0)
-    top_w, top_ids = _top_k_stable(w_new, n_window - 1)
+    top_w, top_ids = matcher.top_k_stable(w_new, n_window - 1)
     sel_ok = top_w > 0
     sel = torch.cat([new_kf[None], torch.where(sel_ok, top_ids, new_kf)])
     sel_active = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
@@ -328,7 +319,7 @@ def select_local_window(m: ms.MapState, new_kf, n_window: int,
     in_sel[sel] = True  # every write is True
     ring_w = (C[sel] * sel_active[:, None]).sum(0)
     ring_w = torch.where(in_sel | ~m.kf_valid, -1.0, ring_w)
-    ring_top_w, ring_ids = _top_k_stable(ring_w, n_fixed_ring)
+    ring_top_w, ring_ids = matcher.top_k_stable(ring_w, n_fixed_ring)
     ring_ok = ring_top_w > 0
     ring = torch.where(ring_ok, ring_ids, new_kf)
 
@@ -462,6 +453,28 @@ def fuse_map_points(
                                            lm_valid=lm_valid))
     return (m2, adopt.sum().to(torch.int32),
             conflict.sum().to(torch.int32))
+
+
+def global_ba_window(n_kf: int, max_kf: int, device):
+    """The keyframe window of a global BA: (ids (B,) int32, fix (B,) bool)
+    over the n_kf live keyframes padded to the next power of 2 (at least
+    2, at most max_kf; the pad ids repeat the last keyframe and local_ba
+    deactivates them), keyframe 0 fixed as the gauge anchor. The solve
+    follows the map, not its capacity."""
+    B = min(max(1 << (n_kf - 1).bit_length(), 2), max_kf)
+    ar = torch.arange(B, device=device)
+    return torch.clamp(ar, max=n_kf - 1).to(torch.int32), ar == 0
+
+
+def global_ba(m: ms.MapState, n_kf: int, fx, fy, cx, cy,
+              n_iters: int = 10) -> ms.MapState:
+    """Bundle adjustment over the n_kf live keyframes (the reference's
+    GlobalBundleAdjustment after a loop correction; the JAX version runs
+    every keyframe slot, which the pad makes the same solve), keyframe 0
+    fixed."""
+    ids, fix = global_ba_window(n_kf, m.kf_valid.shape[0],
+                                m.kf_valid.device)
+    return local_ba(m, ids, fix, fx, fy, cx, cy, n_iters=n_iters)
 
 
 def cull_landmarks(m: ms.MapState, min_found_ratio: float = 0.25,

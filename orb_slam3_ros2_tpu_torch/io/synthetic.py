@@ -3,9 +3,13 @@
 numpy-only pieces copied verbatim from `orb_slam3_ros2_tpu/io/synthetic.py`
 (`_so3_exp_np`, `Trajectory`, `default_trajectory`: lines 30-72;
 `_texture`, `render_sequence`: lines 154-251; the textured room and
-`render_room_sequence_kb8`: lines 259-322, 355-363, 435-545; `umeyama_scale`,
-`ate_rmse`: lines 606-645), so that a machine without JAX can render the same
-frames from the same seed and score a trajectory. The renderers need cv2.
+`render_room_sequence_kb8`: lines 259-322, 355-363, 435-545;
+`_render_planes`, `render_room_sequence`: lines 325-352, 366-432;
+`umeyama_scale`, `ate_rmse`: lines 606-645), and the leave-and-return
+trajectory of the loop-closing clip (`_WaypointTrajectory`,
+`_loop_trajectory`, from `orb_slam3_ros2_tpu/runtime/bench_eval.py:130-197`),
+so that a machine without JAX can render the same frames from the same seed
+and score a trajectory. The renderers need cv2.
 `render_sequence`'s optional `cx`/`cy` (default: the image centre, as in the
 source) is the port's only addition, so a camera with an off-centre
 principal point such as EuRoC cam0 or KITTI can be rendered.
@@ -362,9 +366,159 @@ def render_room_sequence_kb8(
     return images, R_cw.astype(np.float32), t_cw.astype(np.float32), ts
 
 
-# ---------------------------------------------------------------------------
-# IMU synthesis
-# ---------------------------------------------------------------------------
+def _render_planes(planes, K, Rk, tk, width, height, rx, ry):
+    """Z-buffered render of general textured planes (homography warp per
+    plane + analytic ray-plane depth)."""
+    import cv2
+
+    frame = np.zeros((height, width), np.float32)
+    zbuf = np.full((height, width), np.inf, np.float32)
+    R_wc = Rk.T
+    c_w = -Rk.T @ tk
+    for pl in planes:
+        A = np.stack([pl.ax_u, pl.ax_v, pl.origin], axis=1)
+        M = K @ (Rk @ A + np.outer(tk, [0.0, 0.0, 1.0]))
+        warped = cv2.warpPerspective(
+            pl.tex, M, (width, height), flags=cv2.INTER_LINEAR,
+            borderValue=-1.0)
+        n = np.cross(pl.ax_u, pl.ax_v)
+        n /= max(np.linalg.norm(n), 1e-12)
+        den = (n[0] * (R_wc[0, 0] * rx + R_wc[0, 1] * ry + R_wc[0, 2])
+               + n[1] * (R_wc[1, 0] * rx + R_wc[1, 1] * ry + R_wc[1, 2])
+               + n[2] * (R_wc[2, 0] * rx + R_wc[2, 1] * ry + R_wc[2, 2]))
+        s = np.dot(n, pl.origin - c_w) / np.where(
+            np.abs(den) < 1e-9, 1e-9, den)
+        vis = (warped >= 0) & (s > 0.1) & (s < zbuf)
+        frame = np.where(vis, warped, frame)
+        zbuf = np.where(vis, s.astype(np.float32), zbuf)
+    zbuf = np.where(np.isinf(zbuf), 0.0, zbuf)
+    return frame, zbuf
+
+
+def render_room_sequence(
+    n_frames: int = 60,
+    width: int = 640,
+    height: int = 480,
+    fx: float = 450.0,
+    fy: float = 450.0,
+    fps: float = 20.0,
+    seed: int = 0,
+    traj=None,
+    traj_scale: float = 1.5,
+    photometric: bool = True,
+    noise_dn: float = 3.0,
+    exposure_drift: float = 0.02,
+    stereo_baseline: float = 0.0,
+    return_depth: bool = False,
+):
+    """A pinhole camera flying inside the textured room: oblique surfaces,
+    depth discontinuities at wall seams, vignetting, exposure drift, sensor
+    noise and quantization. Returns the tuples of `render_sequence`."""
+    cx, cy = width / 2.0, height / 2.0
+    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]])
+    rng = np.random.default_rng(seed + 77)
+    traj = traj or default_trajectory(seed=seed + 3, scale=traj_scale)
+    ts = np.arange(n_frames) / fps
+    R_wb, p_wb = traj.pose_wb(ts)
+    R_cw = np.swapaxes(R_wb, -1, -2)
+    t_cw = -np.einsum("kij,kj->ki", R_cw, p_wb)
+
+    planes = _room_planes(seed)
+    uu, vv = np.meshgrid(np.arange(width), np.arange(height))
+    rx = (uu - cx) / fx
+    ry = (vv - cy) / fy
+    vignette = 1.0 / (1.0 + rx * rx + ry * ry) ** 1.5
+    gains = np.exp(np.cumsum(rng.normal(0, exposure_drift, n_frames)))
+    gains = np.clip(gains, 0.7, 1.4)
+
+    images = np.zeros((n_frames, height, width), np.float32)
+    depths = np.zeros((n_frames, height, width), np.float32)
+    for k in range(n_frames):
+        frame, zbuf = _render_planes(planes, K, R_cw[k], t_cw[k], width,
+                                     height, rx, ry)
+        depths[k] = zbuf
+        images[k] = (_photometric(frame, vignette, gains[k], noise_dn, rng)
+                     if photometric else frame)
+    if return_depth:
+        assert stereo_baseline == 0.0, "return_depth is mono-only"
+        return (images, depths, R_cw.astype(np.float32),
+                t_cw.astype(np.float32), ts)
+    if stereo_baseline > 0.0:
+        images_r = np.zeros_like(images)
+        off = np.array([stereo_baseline, 0.0, 0.0])
+        for k in range(n_frames):
+            fr, _ = _render_planes(planes, K, R_cw[k], t_cw[k] - off, width,
+                                   height, rx, ry)
+            images_r[k] = (_photometric(fr, vignette, gains[k], noise_dn,
+                                        rng) if photometric else fr)
+        return (images, images_r, R_cw.astype(np.float32),
+                t_cw.astype(np.float32), ts)
+    return images, R_cw.astype(np.float32), t_cw.astype(np.float32), ts
+
+
+class _WaypointTrajectory:
+    """Leave-and-return trajectory: smooth (C1 smoothstep) interpolation
+    through (time, position, yaw) waypoints; the middle leg turns away
+    from the start region, so the revisit shares no covisibility with the
+    early map."""
+
+    def __init__(self, waypoints):
+        self.t_k = np.asarray([w[0] for w in waypoints], float)
+        self.p_k = np.asarray([w[1] for w in waypoints], float)
+        self.yaw_k = np.asarray([w[2] for w in waypoints], float)
+
+    @staticmethod
+    def _smooth(u):
+        return u * u * (3.0 - 2.0 * u)
+
+    def _interp(self, vals, t):
+        t = np.atleast_1d(np.asarray(t, float))
+        idx = np.clip(np.searchsorted(self.t_k, t, side="right") - 1,
+                      0, len(self.t_k) - 2)
+        t0 = self.t_k[idx]
+        t1 = self.t_k[idx + 1]
+        u = self._smooth(np.clip((t - t0) / np.maximum(t1 - t0, 1e-9),
+                                 0.0, 1.0))
+        out = (1 - u)[..., None] * vals[idx] + u[..., None] * vals[idx + 1]
+        return out if vals.ndim > 1 else out[..., 0]
+
+    def position(self, t):
+        p = self._interp(self.p_k, t)
+        return p[0] if np.isscalar(t) else p
+
+    def pose_wb(self, t):
+        t = np.atleast_1d(np.asarray(t, float))
+        p = self._interp(self.p_k, t)
+        yaw = self._interp(self.yaw_k[:, None], t)[..., 0]
+        cz, sz = np.cos(yaw), np.sin(yaw)
+        R = np.zeros(t.shape + (3, 3))
+        R[..., 0, 0] = cz
+        R[..., 0, 2] = sz
+        R[..., 1, 1] = 1.0
+        R[..., 2, 0] = -sz
+        R[..., 2, 2] = cz
+        return R, p
+
+
+def _loop_trajectory(n_frames: int, fps: float) -> _WaypointTrajectory:
+    """Start viewing the back wall near the origin, wander right and turn
+    180 deg to map the opposite end of the room, then return to the start
+    pose (yaw rate under ~25 deg/s)."""
+    T = n_frames / fps
+    pi = np.pi
+    return _WaypointTrajectory([
+        (0.00 * T, (-0.5, 0.0, 0.0), 0.0),
+        (0.08 * T, (0.4, 0.12, 0.3), -0.3),
+        (0.16 * T, (0.9, -0.08, 0.3), -0.9),
+        (0.26 * T, (1.1, 0.08, 0.0), -1.7),
+        (0.36 * T, (0.8, -0.1, -0.4), -2.5),
+        (0.46 * T, (0.0, 0.1, -0.6), -pi - 0.4),
+        (0.56 * T, (-0.8, -0.08, -0.4), -pi - 1.0),
+        (0.66 * T, (-1.1, 0.08, 0.0), -2 * pi + 1.3),
+        (0.76 * T, (-0.9, -0.06, 0.2), -2 * pi + 0.7),
+        (0.88 * T, (-0.5, 0.0, 0.0), -2 * pi),
+        (1.00 * T, (0.4, 0.1, 0.3), -2 * pi - 0.25),
+    ])
 
 
 def umeyama_scale(t_est: np.ndarray, t_gt: np.ndarray) -> float:

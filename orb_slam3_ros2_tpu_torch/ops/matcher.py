@@ -42,6 +42,14 @@ def first_argmin(d: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.where(d == mn, ids, n).amin(dim=dim)
 
 
+def top_k_stable(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest, the lowest index first among
+    ties, as `lax.top_k` orders them (a stable descending sort;
+    `torch.topk` makes no such promise)."""
+    order = torch.sort(x, descending=True, stable=True).indices[:k]
+    return x[order], order
+
+
 def match(
     signs_a: torch.Tensor,
     mask_a: torch.Tensor,

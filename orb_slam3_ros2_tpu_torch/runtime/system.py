@@ -10,30 +10,46 @@ sensors → fuse → local BA → cull) with one device-to-host fetch per
 keyframe (the packed summary). Also here: `undistort` and `frame_step`, the
 per-frame program of the JAX `System._build_jitted` (:205-210, :422-450).
 
+Place recognition and the Atlas: the System owns a `loop.vocab.Vocabulary`
+(the default codebook, or `vocab_path`: a DBoW2 `.txt`, a codebook or tree
+`.npz`) and an `atlas.Atlas` of maps with one BoW database each. After
+each keyframe insertion the keyframe's BoW row is written, and with
+`loopClosing: 1` (the default when the key is absent) loop closing runs
+(cross-map merging, then BoW candidates → temporal consistency → Sim3 →
+essential graph → seam fusion → global BA). A lost frame relocalizes in the
+active map, then in every other map, and after `LOST_FRAMES_NEW_MAP`
+failures a new map is spawned. Keyframe k's BoW row is slot k (the JAX
+System gives the initializer's keyframes no row, so its slots trail the
+keyframe ids; ROADMAP.md §3).
+
 What this slice leaves out raises `NotImplementedError` naming the ROADMAP
-item it waits on (`ROADMAP.md` §1): the inertial sensors (item 7), loop
-closing, a vocabulary, a saved atlas and relocalization after tracking is
-lost (item 8, which ports `loop/vocab.py` and the Atlas), and the
-pipelined mode (item 10).
+item it waits on (`ROADMAP.md` §1): the inertial sensors (item 7), a device
+mesh (item 9) and the pipelined mode (item 10).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import os
 import time as _time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from orb_slam3_ros2_tpu_torch.atlas import atlas as atlas_mod
 from orb_slam3_ros2_tpu_torch.atlas import map_state as ms
+from orb_slam3_ros2_tpu_torch.atlas import merging as merging_mod
 from orb_slam3_ros2_tpu_torch.frontend import extractor as ex
 from orb_slam3_ros2_tpu_torch.frontend import initializer as init_mod
 from orb_slam3_ros2_tpu_torch.frontend import stereo as stereo_mod
 from orb_slam3_ros2_tpu_torch.frontend import tracking as trk
 from orb_slam3_ros2_tpu_torch.geom import lie
 from orb_slam3_ros2_tpu_torch.io import settings as settings_mod
+from orb_slam3_ros2_tpu_torch.loop import closing as closing_mod
+from orb_slam3_ros2_tpu_torch.loop import dbow2 as dbow2_mod
+from orb_slam3_ros2_tpu_torch.loop import vocab as vocab_mod
 from orb_slam3_ros2_tpu_torch.models import cameras as cam_mod
 from orb_slam3_ros2_tpu_torch.ops import matcher
 
@@ -203,21 +219,21 @@ class System:
             _not_ported(f"sensor {self.sensor.name}", "7")
         if pipelined:
             _not_ported("the pipelined mode", "10")
-        if vocab_path:
-            _not_ported("a vocabulary (vocab_path)", "8")
         if mesh is not None:
-            _not_ported("a device mesh", "9")
+            _not_ported("a device mesh (the sharded global BA)", "9")
+        self._metric_scale = self.sensor in (Sensor.STEREO, Sensor.RGBD)
         self.settings = settings_mod.load_settings(settings_path)
-        if self.settings.loop_closing:
-            _not_ported("loop closing (settings loopClosing: 1)", "8")
-        if load_atlas or self.settings.load_atlas_from_file:
-            _not_ported("loading a saved atlas", "8")
         self.use_viewer = use_viewer
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"System(device={device!r}): no CUDA device is available; "
                 "pass device=\"cpu\" to run on the CPU")
+        # the reference's ORBvoc.txt constructor slot: None -> the default
+        # codebook; a DBoW2 .txt, a trained codebook .npz or a tree .npz
+        self.vocab = vocab_mod.Vocabulary(
+            dbow2_mod.load_vocabulary_any(vocab_path) if vocab_path else None,
+            self.device)
         cam = self.settings.camera
         self.cam = cam
         self.ex_cfg = ex.ExtractorConfig(
@@ -253,12 +269,28 @@ class System:
             self.stereo_baseline = float(self.settings.stereo_b
                                          or cam.baseline or 0.05)
         self.reset()
+        # `System.LoadAtlasFromFile`: a missing file starts a new Atlas; a
+        # loaded one is relocalized into, and never discarded
+        load = load_atlas or self.settings.load_atlas_from_file
+        if load:
+            path = load if load.endswith(".npz") else load + ".npz"
+            if os.path.isfile(path):
+                loaded = atlas_mod.Atlas.load(path, self.device)
+                if (loaded.cfg == self.map_cfg
+                        and loaded.n_words == self.vocab.n_words):
+                    self.atlas = loaded
+                    self._rows_per_keyframe()
+                    self.state = TrackingState.LOST
+                    self._map_protected = True
+                    self.kf_times = self._map_kf_times()
 
     # ------------------------------------------------------------------ state
 
     def reset(self):
-        self.map = ms.empty_map(self.map_cfg, self.device)
+        self.atlas = atlas_mod.Atlas(self.map_cfg, self.vocab.n_words,
+                                     self.device)
         self.state = TrackingState.NOT_INITIALIZED
+        self._map_protected = False  # see LoadAtlasFromFile / _relocalize
         self.Tcw = np.eye(4, dtype=np.float32)  # current camera pose
         self.velocity: Optional[np.ndarray] = None  # T_cur_last (4, 4)
         self.last_Tcw: Optional[np.ndarray] = None
@@ -280,6 +312,74 @@ class System:
         self._scene_depth = None  # median tracked-landmark depth (summary)
         self._last_kf_center = None  # camera centre at the last keyframe
         self._frame_ref_cache = None
+        # loop closing and relocalization
+        self.n_loops_closed = 0
+        self.n_maps_merged = 0
+        self.last_loop_kf = -10**9
+        self.frames_lost = 0
+        # temporal consistency: [(covisible group, count), ...]
+        self._loop_consistency: List[Tuple[set, int]] = []
+
+    # ---------------------------------------------------------------- atlas
+
+    @property
+    def map(self) -> ms.MapState:
+        """The active map (the Atlas holds it)."""
+        return self.atlas.current_map
+
+    @map.setter
+    def map(self, m: ms.MapState) -> None:
+        self.atlas.current_map = m
+
+    @property
+    def bow_db(self) -> vocab_mod.BowDatabase:
+        """The active map's BoW database."""
+        return self.atlas.current_bow
+
+    @bow_db.setter
+    def bow_db(self, db: vocab_mod.BowDatabase) -> None:
+        self.atlas.current_bow = db
+
+    def save_atlas(self, path: Optional[str] = None) -> Optional[str]:
+        """`System.SaveAtlasToFile`: the Atlas as `.npz` at `path` (or the
+        settings' `System.SaveAtlasToFile`); returns the path."""
+        path = path or self.settings.save_atlas_to_file
+        if not path:
+            return None
+        if not path.endswith(".npz"):
+            path = path + ".npz"
+        self.atlas.save(path)
+        return path
+
+    def _spawn_new_map(self):
+        """Tracking irrecoverably lost: freeze the active map and start a
+        fresh one."""
+        self.atlas.create_new_map()
+        self._spawn_state_reset()
+        self._map_protected = False
+
+    def _map_kf_times(self) -> List[float]:
+        """Host keyframe times of the active map, from its `kf_time`."""
+        n_kf = int(self.map.n_kf)
+        return [float(t) for t in self.map.kf_time[:n_kf].cpu().numpy()]
+
+    def _rows_per_keyframe(self):
+        """Rebuild every map's BoW rows from its keyframes' stored
+        descriptors, keyframe k at slot k. An Atlas saved by the JAX System
+        has no rows for the initializer's keyframes and its slot s holds
+        keyframe s + 2 (ROADMAP.md §3); a row is a function of the
+        vocabulary and its keyframe's features, so the port's own rows come
+        back as they were saved."""
+        self.atlas.bow_dbs = [
+            vocab_mod.rows_from_keyframes(self.vocab, m.kf_bits,
+                                          m.kf_feat_valid, int(m.n_kf))
+            for m in self.atlas.maps]
+
+    def _add_bow_row(self, kf_id: int, feats):
+        """Keyframe kf_id's BoW row, at slot kf_id."""
+        self.bow_db = vocab_mod.add_keyframe(self.bow_db, self.vocab,
+                                             feats.signs, feats.mask,
+                                             slot=kf_id)
 
     # --------------------------------------------------------------- helpers
 
@@ -536,6 +636,9 @@ class System:
         self.frames_since_kf = 0
         self.last_kf_inliers = int(good.sum())
         self.kf_times = [self.ref_time or 0.0, timestamp]
+        # both initializer keyframes get their BoW rows (slots 0 and 1)
+        self._add_bow_row(0, f0)
+        self._add_bow_row(1, feats)
 
     def _initialize_stereo(self, feats, sm, timestamp: float):
         """One-frame metric initialization: at least 80 features with a
@@ -560,6 +663,7 @@ class System:
         self.frames_since_kf = 0
         self.last_kf_inliers = n_depth
         self.kf_times = [timestamp]
+        self._add_bow_row(0, feats)
 
     # ------------------------------------------------------------- tracking
 
@@ -597,10 +701,6 @@ class System:
             self._insert_keyframe_fused(feats, obs_clean, timestamp, n_inl,
                                         stereo)
 
-    def _relocalize(self, feats, timestamp: float):
-        _not_ported("relocalization after tracking is lost (loop/vocab.py "
-                    "and the keyframe BoW database)", "8")
-
     def _need_keyframe(self, n_inl: int, n_kf: int = -1) -> bool:
         """The keyframe cadence of every ported sensor (the JAX System gives
         only IMU_MONOCULAR a denser one): a keyframe every max(fps // 2, 5)
@@ -621,9 +721,9 @@ class System:
                                n_inl: int, stereo=None):
         """One `mapping_step` (with the stereo stage when `stereo`, a
         StereoObs, is given) and one fetch of its summary, then the host
-        bookkeeping (compaction triggers). The JAX version also inserts the
-        keyframe's BoW row here, which goes with relocalization (ROADMAP §1
-        item 8)."""
+        side: the keyframe's BoW row (at its slot, known from the summary,
+        so `mapping_step` stays one device program), compaction triggers
+        and loop closing."""
         cam = self.cam
         m, summary = mapping_step(
             self.map, self._tensor(self.Tcw[:3, :3]),
@@ -635,15 +735,32 @@ class System:
         self.map = m
         s = summary.cpu().numpy()
         n_kf_after, n_lm = int(s[12]), int(s[13])
+        new_id = n_kf_after - 1
+        self._add_bow_row(new_id, feats)
         self.kf_times.append(timestamp)
         self.frames_since_kf = 0
         self.last_kf_inliers = max(n_inl, 1)
-        self._maybe_compact(n_kf=n_kf_after, n_lm=n_lm)
-        # adopt the BA-refined keyframe pose: it seeds the next frame's
-        # motion model, and refills the frame-reference cache with no fetch
-        self.Tcw = self._pose44(s[:9].reshape(3, 3), s[9:12])
-        self._frame_ref_cache = (timestamp, self.Tcw.copy(),
-                                 float(self.scale_applied))
+        kf_remap = self._maybe_compact(n_kf=n_kf_after, n_lm=n_lm)
+        if kf_remap is not None:
+            new_id = int(kf_remap[new_id])
+        closed, merged = self.n_loops_closed, self.n_maps_merged
+        if self.settings.loop_closing:
+            self._try_close_loop(new_id, feats)
+        if self.n_loops_closed != closed:
+            # the correction moved the keyframe: re-read it
+            self.Tcw = self._pose44(self.map.kf_R[new_id].cpu().numpy(),
+                                    self.map.kf_t[new_id].cpu().numpy())
+            self._mark_frame_ref_dirty()
+        elif self.n_maps_merged != merged:
+            # `_try_merge_maps` moved the live pose into the merged world
+            self._mark_frame_ref_dirty()
+        else:
+            # adopt the BA-refined keyframe pose: it seeds the next frame's
+            # motion model, and refills the frame-reference cache with no
+            # fetch
+            self.Tcw = self._pose44(s[:9].reshape(3, 3), s[9:12])
+            self._frame_ref_cache = (timestamp, self.Tcw.copy(),
+                                     float(self.scale_applied))
         self._last_kf_center = -self.Tcw[:3, :3].T @ self.Tcw[:3, 3]
 
     # ------------------------------------------------------- map maintenance
@@ -702,9 +819,326 @@ class System:
         return remap_np
 
     def _remap_host_kf_state(self, remap: np.ndarray, old_n_kf: int):
-        """Rewrite the host bookkeeping after a keyframe compaction: of the
-        JAX version's, the keyframe times (BoW rows, velocities, loop ids,
-        preintegrations and listeners belong to parts not ported)."""
+        """Rewrite the host bookkeeping after a keyframe compaction: the
+        keyframe times, the BoW rows (which follow their keyframes' slots;
+        document counts recounted), the last loop keyframe and the loop
+        consistency groups (the JAX version's velocities, preintegrations
+        and listeners belong to parts not ported)."""
         kept = [k for k in range(old_n_kf) if remap[k] >= 0]
         self.kf_times = [self.kf_times[k] for k in kept
                          if k < len(self.kf_times)]
+        self.bow_db = vocab_mod.place_rows(
+            vocab_mod.empty_database(self.map_cfg.max_kf,
+                                     self.vocab.n_words, self.device),
+            self.bow_db, kept, remap[kept])
+        if 0 <= self.last_loop_kf < old_n_kf:
+            r = int(remap[self.last_loop_kf])
+            self.last_loop_kf = r if r >= 0 else -10**9
+        self._loop_consistency = [
+            (g2, c) for g2, c in (
+                ({int(remap[k]) for k in g
+                  if 0 <= k < old_n_kf and remap[k] >= 0}, c)
+                for g, c in self._loop_consistency) if g2]
+
+    # ------------------------------------------------------------ loop close
+
+    LOOP_EXCLUDE = 12  # recent keyframes excluded from candidates
+    LOOP_MIN_SCORE = 0.10
+    LOOP_COOLDOWN = 10  # keyframes between accepted loops
+    # a loop region must be re-detected on this many consecutive keyframes
+    # before geometric verification (upstream LoopClosing::DetectLoop)
+    LOOP_CONSISTENCY_TH = 2
+    MERGE_MIN_SCORE = 0.10
+
+    def _sim3_generator(self, offset: int) -> torch.Generator:
+        """The Sim3 RANSAC draw of a verification, seeded as the JAX
+        System keys it (`PRNGKey(n_frames + offset)`)."""
+        return torch.Generator(device=self.device).manual_seed(
+            self.n_frames + offset)
+
+    def _try_close_loop(self, new_kf: int, feats):
+        """Cross-map merging (when the Atlas holds other maps), then BoW
+        candidates → covisibility-group accumulation → temporal consistency
+        → Sim3 verification → essential-graph correction → seam fusion →
+        global BA (the JAX `_try_close_loop`, :1895-1995)."""
+        if self.atlas.n_maps() > 1 and new_kf >= 2:
+            if self._try_merge_maps(new_kf, feats):
+                return
+        if new_kf < self.LOOP_EXCLUDE + 2:
+            return
+        if new_kf - self.last_loop_kf < self.LOOP_COOLDOWN:
+            return
+        covis = ms.covisibility_matrix(self.map).cpu().numpy()
+        K = self.map_cfg.max_kf
+        exclude = np.zeros((K,), bool)
+        exclude[covis[new_kf] > 0] = True
+        exclude[max(new_kf - self.LOOP_EXCLUDE, 0):] = True
+        scores, ids = vocab_mod.query(
+            self.bow_db, self.vocab, feats.signs, feats.mask,
+            torch.from_numpy(exclude).to(self.device), top_k=8)
+        scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
+        # covisibility-group accumulation (upstream KeyFrameDatabase::
+        # DetectLoopCandidates): groups under 0.75x the best accumulated
+        # score drop out, the best member represents each group
+        hits = [(int(ids[r]), float(scores[r])) for r in range(len(ids))
+                if scores[r] >= self.LOOP_MIN_SCORE]
+        acc = []
+        for c, sc in hits:
+            group = set(np.flatnonzero(covis[c] > 0).tolist()) | {c}
+            acc.append((c, sc, sum(s2 for c2, s2 in hits if c2 in group)))
+        keep_ids, keep_scores = [], []
+        if acc:
+            best_acc = max(a for _, _, a in acc)
+            seen: set = set()
+            for c, sc, a in sorted(acc, key=lambda x: -x[2]):
+                if a < 0.75 * best_acc or c in seen:
+                    continue
+                keep_ids.append(c)
+                keep_scores.append(sc)
+                seen |= set(np.flatnonzero(covis[c] > 0).tolist())
+                seen.add(c)
+        consistent = self._update_loop_consistency(
+            np.asarray(keep_scores, np.float32),
+            np.asarray(keep_ids, np.int32), covis)
+        fix_scale = self._metric_scale
+        cam = self.cam
+        for cand_kf in consistent:
+            cand = closing_mod.detect_and_verify(
+                self.map, new_kf, cand_kf, self._sim3_generator(cand_kf),
+                fix_scale=fix_scale)
+            if cand is None:
+                continue
+            self.map = closing_mod.close_loop(self.map, new_kf, cand,
+                                              covis=covis,
+                                              fix_scale=fix_scale)
+            # SearchAndFuse across the seam: duplicates created while the
+            # loop was open merge into their older counterparts
+            for seam_kf in (new_kf, cand.cand_kf):
+                self.map, _, _ = trk.fuse_map_points(
+                    self.map, seam_kf, cam.fx, cam.fy, cam.cx, cam.cy,
+                    cam.width, cam.height)
+            self._run_global_ba(n_iters=8)
+            self.Tcw = self._pose44(self.map.kf_R[new_kf].cpu().numpy(),
+                                    self.map.kf_t[new_kf].cpu().numpy())
+            self.last_Tcw = self.Tcw.copy()
+            self.velocity = None
+            self.n_loops_closed += 1
+            self.last_loop_kf = new_kf
+            return
+
+    def _update_loop_consistency(self, scores, ids, covis) -> list:
+        """Temporal-consistency vetting: each candidate expands to its
+        covisible group, and becomes consistent when its group meets a
+        group detected on LOOP_CONSISTENCY_TH consecutive keyframes.
+        Returns the candidate ids cleared for verification."""
+        consistent, new_groups = [], []
+        for rank in range(len(ids)):
+            if scores[rank] < self.LOOP_MIN_SCORE:
+                continue
+            cand = int(ids[rank])
+            group = set(np.flatnonzero(covis[cand] > 0).tolist()) | {cand}
+            count = 1
+            for prev_group, prev_count in self._loop_consistency:
+                if group & prev_group:
+                    count = max(count, prev_count + 1)
+            new_groups.append((group, count))
+            if count >= self.LOOP_CONSISTENCY_TH:
+                consistent.append(cand)
+        self._loop_consistency = new_groups
+        return consistent
+
+    def _run_global_ba(self, n_iters: int = 8):
+        """`tracking.global_ba` over the live keyframes."""
+        n_kf = int(self.map.n_kf)
+        if n_kf < 2:
+            return
+        cam = self.cam
+        self.map = trk.global_ba(self.map, n_kf, cam.fx, cam.fy, cam.cx,
+                                 cam.cy, n_iters=n_iters)
+        self._mark_frame_ref_dirty()
+
+    def _try_merge_maps(self, new_kf: int, feats) -> bool:
+        """A BoW hit in another Atlas map → Sim3 → PnP refinement → weld the
+        active map into it; the merged map becomes the active one (the JAX
+        `_try_merge_maps`, :2107-2213)."""
+        cam = self.cam
+        K = self.map_cfg.max_kf
+        for mi in range(self.atlas.n_maps()):
+            if mi == self.atlas.active:
+                continue
+            old_map = self.atlas.maps[mi]
+            old_db = self.atlas.bow_dbs[mi]
+            if int(old_db.n) < 1:
+                continue
+            scores, ids = vocab_mod.query(
+                old_db, self.vocab, feats.signs, feats.mask,
+                torch.zeros((K,), dtype=torch.bool, device=self.device),
+                top_k=1)
+            if float(scores[0]) < self.MERGE_MIN_SCORE:
+                continue
+            cand = merging_mod.detect_cross_map(
+                self.map, new_kf, old_map, int(ids[0]),
+                self._sim3_generator(77), fix_scale=self._metric_scale)
+            if cand is None:
+                continue
+            cand = merging_mod.refine_weld_pnp(self.map, old_map, cand,
+                                               cam.fx, cam.fy, cam.cx, cam.cy)
+            # detect_cross_map solved x_active = s R x_old + t; the active
+            # map is welded into the old one, so invert
+            s_inv = 1.0 / cand.s
+            R_inv = cand.R.T
+            t_inv = -s_inv * (R_inv @ cand.t)
+            alias = np.full(self.map_cfg.max_lm, -1, np.int32)
+            if cand.lm_pairs.size:
+                alias[cand.lm_pairs[:, 0]] = cand.lm_pairs[:, 1]
+            merged, kept_kf, first_slot = merging_mod.merge_maps(
+                old_map, self.map, R_inv, t_inv, s_inv, self.map_cfg,
+                lm_alias=alias)
+            # BoW rows: the old map's, then the kept active rows at their
+            # keyframes' new slots
+            new_db = vocab_mod.place_rows(
+                old_db, self.bow_db, kept_kf,
+                first_slot + np.arange(len(kept_kf)))
+            prev_active = self.atlas.active
+            self.atlas.maps[mi] = merged
+            self.atlas.bow_dbs[mi] = new_db
+            del self.atlas.maps[prev_active]
+            del self.atlas.bow_dbs[prev_active]
+            self.atlas.active = mi if mi < prev_active else mi - 1
+            self.kf_times = self._map_kf_times()
+            # the live pose into the merged world
+            R_cw2 = self.Tcw[:3, :3] @ R_inv.T
+            t_cw2 = s_inv * self.Tcw[:3, 3] - R_cw2 @ t_inv
+            self.Tcw = self._pose44(R_cw2, t_cw2)
+            self.last_Tcw = self.Tcw.copy()
+            self.velocity = None
+            self.n_maps_merged += 1
+            self.last_loop_kf = int(merged.n_kf) - 1
+            return True
+        return False
+
+    # ------------------------------------------------------- relocalization
+
+    LOST_FRAMES_NEW_MAP = 20  # ~2 s at 10 FPS before spawning a fresh map
+    MIN_KFS_KEEP_MAP = 8  # smaller lost maps are discarded, not frozen
+    RELOC_MIN_SCORE = 0.05  # BoW floor for cross-map candidates
+    RELOC_MIN_MATCHES = 25  # matches and pose inliers a try needs
+
+    def _reloc_try(self, m: ms.MapState, feats, R0, t0, radius: float):
+        """Search-by-projection from the pose (R0, t0) at `radius` px with
+        max_dist 45, then the pose LM: the refined (R, t), or None under
+        RELOC_MIN_MATCHES matches or inliers (one host sync on each)."""
+        cam = self.cam
+        tm = trk.match_to_map(
+            m, feats.uv, feats.bits, feats.mask, R0, t0, cam.fx, cam.fy,
+            cam.cx, cam.cy, cam.width, cam.height, radius=radius,
+            max_dist=45.0, cap_visible=self._cap_vis)
+        if int(tm.n_matches) < self.RELOC_MIN_MATCHES:
+            return None
+        res, _ = trk.track_pose(m, tm.obs_lm, feats.uv, feats.level, R0, t0,
+                                cam.fx, cam.fy, cam.cx, cam.cy,
+                                scale_factor=self.ex_cfg.scale_factor)
+        if int(res.n_inliers) < self.RELOC_MIN_MATCHES:
+            return None
+        return res.R, res.t
+
+    def _relocalize(self, feats, timestamp: float):
+        """Relocalization: the last pose at 80 px, then the BoW top-5
+        keyframes of the active map at 60 px; then every other Atlas map;
+        after LOST_FRAMES_NEW_MAP failures a small unprotected map restarts
+        in place and any other is frozen behind a new map."""
+        del timestamp
+        self._mark_frame_ref_dirty()
+        tries = [(self._tensor(self.Tcw[:3, :3]),
+                  self._tensor(self.Tcw[:3, 3]), 80.0)]
+        n_kf = int(self.map.n_kf)
+        if n_kf > 0:
+            scores, ids = vocab_mod.query(
+                self.bow_db, self.vocab, feats.signs, feats.mask,
+                torch.zeros((self.map_cfg.max_kf,), dtype=torch.bool,
+                            device=self.device), top_k=5)
+            for sc, kid in zip(scores.cpu().numpy(), ids.cpu().numpy()):
+                if sc > 0.0:
+                    tries.append((self.map.kf_R[kid], self.map.kf_t[kid],
+                                  60.0))
+        for R0, t0, radius in tries:
+            pose = self._reloc_try(self.map, feats, R0, t0, radius)
+            if pose is not None:
+                self.Tcw = self._pose44(pose[0].cpu().numpy(),
+                                        pose[1].cpu().numpy())
+                self.last_Tcw = self.Tcw.copy()
+                self.velocity = None
+                self.state = TrackingState.OK
+                self.frames_lost = 0
+                return
+        if self._reloc_other_maps(feats):
+            return
+        self.frames_lost += 1
+        if self.frames_lost >= self.LOST_FRAMES_NEW_MAP:
+            if n_kf < self.MIN_KFS_KEEP_MAP and not self._map_protected:
+                self.atlas.reset_current()
+                self._spawn_state_reset()
+            else:
+                self._spawn_new_map()
+
+    def _reloc_other_maps(self, feats) -> bool:
+        """Atlas-wide relocalization: each non-active map's BoW top-2 at 60
+        px; on a verified hit that map becomes the active one."""
+        K = self.map_cfg.max_kf
+        for mi in range(self.atlas.n_maps()):
+            if mi == self.atlas.active:
+                continue
+            old_map = self.atlas.maps[mi]
+            old_db = self.atlas.bow_dbs[mi]
+            if int(old_db.n) < 1:
+                continue
+            scores, ids = vocab_mod.query(
+                old_db, self.vocab, feats.signs, feats.mask,
+                torch.zeros((K,), dtype=torch.bool, device=self.device),
+                top_k=2)
+            for sc, kid in zip(scores.cpu().numpy(), ids.cpu().numpy()):
+                if sc < self.RELOC_MIN_SCORE:
+                    continue
+                pose = self._reloc_try(old_map, feats, old_map.kf_R[kid],
+                                       old_map.kf_t[kid], 60.0)
+                if pose is not None:
+                    self._switch_active_map(mi)
+                    self.Tcw = self._pose44(pose[0].cpu().numpy(),
+                                            pose[1].cpu().numpy())
+                    self.last_Tcw = self.Tcw.copy()
+                    return True
+        return False
+
+    def _switch_active_map(self, mi: int):
+        """Resume Atlas map `mi`. The abandoned map stays frozen if it has
+        MIN_KFS_KEEP_MAP keyframes or is protected; else it is dropped."""
+        prev = self.atlas.active
+        if int(self.map.n_kf) < self.MIN_KFS_KEEP_MAP and \
+                not self._map_protected:
+            del self.atlas.maps[prev]
+            del self.atlas.bow_dbs[prev]
+            if mi > prev:
+                mi -= 1
+        self.atlas.active = mi
+        self.kf_times = self._map_kf_times()
+        self._loop_consistency = []
+        self._map_protected = True  # resumed history is never discarded
+        self.velocity = None
+        self.state = TrackingState.OK
+        self.frames_lost = 0
+        self.frames_since_kf = 0
+        self.last_loop_kf = -10**9
+
+    def _spawn_state_reset(self):
+        self._mark_frame_ref_dirty()
+        self.state = TrackingState.NOT_INITIALIZED
+        self.Tcw = np.eye(4, dtype=np.float32)
+        self.velocity = None
+        self.last_Tcw = None
+        self.ref_feats = None
+        self.ref_time = None
+        self.frames_since_kf = 0
+        self.frames_lost = 0
+        self.kf_times = []
+        self.last_loop_kf = -10**9
+        self._loop_consistency = []

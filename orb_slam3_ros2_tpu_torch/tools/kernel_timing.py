@@ -121,11 +121,14 @@ def pose_case(N: int, seed: int, outlier_frac: float = 0.3):
 
 
 # the match cases' image (752x480, EuRoC) and call settings: tracking's
-# first match (frontend/tracking.py) and SearchAndFuse's
+# first match (frontend/tracking.py), SearchAndFuse's, and relocalization's
+# tries from the last pose and from a BoW keyframe (runtime/system.py)
 MATCH_WIDTH, MATCH_HEIGHT = 752, 480
 MATCH_SETTINGS = {
     "track": dict(radius=15.0, max_dist=50.0, ratio=0.9, mutual=True),
     "fuse": dict(radius=4.0, max_dist=45.0, ratio=None, mutual=False),
+    "reloc80": dict(radius=80.0, max_dist=45.0, ratio=0.9, mutual=True),
+    "reloc60": dict(radius=60.0, max_dist=45.0, ratio=0.9, mutual=True),
 }
 
 

@@ -1,5 +1,5 @@
 """Run the System over a rendered clip of one of the configurations of
-`chip_smoke.py` phases 4-7, which import them from here.
+`chip_smoke.py` phases 4-9, which import them from here.
 
     python -m orb_slam3_ros2_tpu_torch.tools.system_run [--device DEV]
         [--config NAME] [--profile] [--cpu-inputs] [--init-offsets K ...]
@@ -8,8 +8,13 @@
               error) or cpu.
 --config      euroc_mono (the default: `track_monocular`, phase 4),
               kitti_stereo, tum1_rgbd or tumvi_stereo (`track_stereo` /
-              `track_rgbd`, phases 5-7; see `RIGS`). The three options
-              below apply to euroc_mono only.
+              `track_rgbd`, phases 5-7; see `RIGS`), euroc_reloc (phase 8:
+              the euroc_mono clip through the stock
+              `config/Monocular/EuRoC.yaml`, then four lost-and-recovered
+              scenarios; `run_reloc`) or synth_loopy (phase 9: the
+              leave-and-return room clip with loop closing on and off;
+              `run_loopy`). The three options below apply to euroc_mono
+              only.
 
 --profile     (CUDA) trace frames 16-24, then the first keyframe insertion
               from frame 25 on, with torch.profiler; print for each the wall
@@ -34,34 +39,45 @@ The rig configurations take a published settings file's widths unchanged:
 image size, intrinsics, feature count, levels, FAST thresholds, baseline
 and `Stereo.ThDepth`. What each cuts (`reduced`): rendered frames instead
 of a recorded sequence, a 22-30-frame clip of it, fps 10 where the source
-says 20 or 30, loop closing off; TUM1 drops its radtan distortion (the
+says 20 or 30; TUM1 drops its radtan distortion (the
 frames are rendered without it, so the settings say `Rectified`), and
 TUM-VI's `Stereo.T_c1_c2` keeps only its x translation (the renderer's rig
 is a translation along x). KITTI and TUM-VI fly through the textured room
 of `render_room_sequence_kb8` (walls, floor and ceiling; photometric
 noise), TUM1 past the fronto-parallel planes of `render_sequence`, which
 also renders its depth.
+
+euroc_reloc takes `config/Monocular/EuRoC.yaml` as published (radtan
+distortion, fps 20, loop closing on by default), and the euroc_mono clip is
+rendered through that distortion (`render_euroc_distorted`). synth_loopy is
+the JAX evaluation's `synth_loopy` row (`scripts/eval_ate.py`,
+`runtime/bench_eval.run_loop_closure_case`): 280 frames at 640x480, fx 450,
+fps 10, seed 3, on `render_room_sequence` along `_loop_trajectory`, with
+the settings template of `runtime/bench_eval.py`.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import statistics
 import tempfile
 import time
 from pathlib import Path
-from typing import Callable, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from orb_slam3_ros2_tpu_torch.atlas import map_state as ms
 from orb_slam3_ros2_tpu_torch.frontend import extractor as ex
 from orb_slam3_ros2_tpu_torch.frontend import initializer as init_mod
 from orb_slam3_ros2_tpu_torch.io import settings as settings_mod
 from orb_slam3_ros2_tpu_torch.io import synthetic
 from orb_slam3_ros2_tpu_torch.models import cameras
+from orb_slam3_ros2_tpu_torch.ops import orb_descriptor as desc_ops
 from orb_slam3_ros2_tpu_torch.runtime import system as sysm
 
 REPO = Path(__file__).resolve().parents[2]
@@ -84,15 +100,14 @@ def render():
 
 def write_settings(path: Path) -> str:
     """EuRoC cam0 as a rectified camera (the frames are rendered without
-    distortion), 1000 features over 8 levels, loop closing off."""
+    distortion), 1000 features over 8 levels."""
     path.write_text(
         "%YAML:1.0\nCamera.type: \"Rectified\"\n"
         f"Camera1.fx: {FX}\nCamera1.fy: {FY}\nCamera1.cx: {CX}\n"
         f"Camera1.cy: {CY}\nCamera.width: {WIDTH}\nCamera.height: {HEIGHT}\n"
         f"Camera.fps: {int(FPS)}\nORBextractor.nFeatures: 1000\n"
         "ORBextractor.scaleFactor: 1.2\nORBextractor.nLevels: 8\n"
-        "ORBextractor.iniThFAST: 20\nORBextractor.minThFAST: 7\n"
-        "loopClosing: 0\n")
+        "ORBextractor.iniThFAST: 20\nORBextractor.minThFAST: 7\n")
     return str(path)
 
 
@@ -170,7 +185,7 @@ def _kitti_render():
 
 def _tum1_settings() -> str:
     return derived_settings(TUM1, {"Camera.type": "Rectified",
-                                   "Camera.fps": 10.0, "loopClosing": 0},
+                                   "Camera.fps": 10.0},
                             drop=("Camera1.k1", "Camera1.k2", "Camera1.p1",
                                   "Camera1.p2", "Camera1.k3"))
 
@@ -187,8 +202,7 @@ def _tum1_render():
 def _tumvi_settings() -> str:
     T = np.eye(4)
     T[0, 3] = TUMVI_BASELINE
-    return derived_settings(TUMVI, {"Camera.fps": 10.0, "Stereo.T_c1_c2": T,
-                                    "loopClosing": 0})
+    return derived_settings(TUMVI, {"Camera.fps": 10.0, "Stereo.T_c1_c2": T})
 
 
 def _tumvi_render():
@@ -203,7 +217,7 @@ def _tumvi_render():
 RIGS = {r.name: r for r in (
     # tests/test_e2e_stereo.py's bounds at KITTI00-02 width, on the room
     Rig("kitti_stereo", sysm.Sensor.STEREO, KITTI, 30,
-        lambda: derived_settings(KITTI, {"loopClosing": 0}), _kitti_render,
+        lambda: derived_settings(KITTI, {}), _kitti_render,
         min_tracked=15, ate_max_m=0.08, length_tol=0.12),
     # tests/test_e2e_rgbd.py's at TUM1's intrinsics
     Rig("tum1_rgbd", sysm.Sensor.RGBD, TUM1, 30, _tum1_settings,
@@ -266,6 +280,384 @@ def run_rig(name: str, device) -> dict:
                 n_kf=int(slam.map.n_kf), n_lm=int(slam.map.lm_valid.sum()),
                 **rig_metrics(slam, frames[2], frames[3]), frame_ms=frame_ms,
                 median_frame_ms=statistics.median(frame_ms))
+
+
+# ------------------------------------------ relocalization (phase 8)
+
+EUROC = "config/Monocular/EuRoC.yaml"
+RELOC_SHOW_FRAME = 10  # the frame re-shown after the blackout
+RELOC_RETRIES = 10  # frames a reloaded Atlas may take to relocalize
+RELOC_CENTRE_M = 0.1  # recovered centre against the tracked one
+
+
+def render_euroc_distorted():
+    """The euroc_mono clip through EuRoC cam0's radtan distortion: each raw
+    pixel samples a padded pinhole render at its undistorted position,
+    which the camera model of the stock settings computes (the System
+    undistorts keypoints with the same model)."""
+    import cv2
+
+    cam = settings_mod.load_settings(str(REPO / EUROC)).camera
+    vv, uu = np.mgrid[0:cam.height, 0:cam.width].astype(np.float32)
+    rays = cameras.unproject(cam, torch.from_numpy(
+        np.stack([uu, vv], -1))).numpy()
+    u_p = cam.fx * rays[..., 0] + cam.cx
+    v_p = cam.fy * rays[..., 1] + cam.cy
+    pad = int(np.ceil(max(-u_p.min(), u_p.max() - cam.width + 1,
+                          -v_p.min(), v_p.max() - cam.height + 1, 0))) + 2
+    imgs, R_gt, t_gt, ts = synthetic.render_sequence(
+        n_frames=N_FRAMES, width=cam.width + 2 * pad,
+        height=cam.height + 2 * pad, fx=cam.fx, fy=cam.fy, fps=FPS,
+        seed=SEED, plane_depths=PLANE_DEPTHS, traj_scale=TRAJ_SCALE,
+        cx=cam.cx + pad, cy=cam.cy + pad)
+    out = np.stack([cv2.remap(im, u_p + pad, v_p + pad, cv2.INTER_LINEAR)
+                    for im in imgs])
+    return out, R_gt, t_gt, ts
+
+
+def _lost_frame(slam: sysm.System, image, t: float) -> dict:
+    """One frame given to a lost System: its host time (device
+    synchronized) and the match and pose launches it made."""
+    from orb_slam3_ros2_tpu_torch.backend import pose_opt_fused
+    from orb_slam3_ros2_tpu_torch.ops import fused_match
+
+    counters = (fused_match.match_window, pose_opt_fused.optimize_pose_fused)
+    before = [fn.launches for fn in counters]
+    sync = (torch.cuda.synchronize if slam.device.type == "cuda"
+            else lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    slam.track_monocular(image, t)
+    sync()
+    return dict(ms=(time.perf_counter() - t0) * 1e3,
+                recovered=slam.get_tracking_state() == sysm.TrackingState.OK,
+                match_launches=fused_match.match_window.launches - before[0],
+                pose_launches=(pose_opt_fused.optimize_pose_fused.launches
+                               - before[1]))
+
+
+def _blackout(slam: sysm.System):
+    """Tracking dies and a junk map spawns (as the JAX Atlas tests force
+    it): the next frames relocalize."""
+    slam.state = sysm.TrackingState.LOST
+    slam.atlas.create_new_map()
+    slam._spawn_state_reset()
+    slam.state = sysm.TrackingState.LOST
+
+
+def _centre(T) -> np.ndarray:
+    return -T[:3, :3].T @ T[:3, 3]
+
+
+def run_reloc(device, frames=None, tmp_dir=None) -> dict:
+    """The euroc_mono clip through the stock EuRoC settings from a blank
+    map, then the four scenarios of the JAX Atlas tests, each on its own
+    copy of the System: (blackout) a junk map, frame RELOC_SHOW_FRAME
+    re-shown; (blank) a blank frame after the blackout; (reload) the Atlas
+    saved and loaded by a new System through `System.LoadAtlasFromFile`,
+    fed the clip's first frames; (new_map) LOST_FRAMES_NEW_MAP + 8 noise
+    frames after the blackout's recovery, whose resumed map is protected,
+    so it is frozen behind a new map. A fresh copy given the same noise
+    (restart) shows the tiny-map policy: a map of fewer than
+    MIN_KFS_KEEP_MAP keyframes restarts in place (with the stock fps of 20
+    the 40-frame map has about 6). Returns the results and every lost
+    frame's time and launches; the bars are checked by the caller."""
+    device = torch.device(device)
+    imgs, R_gt, t_gt, ts = frames if frames is not None \
+        else render_euroc_distorted()
+    slam = sysm.System(None, str(REPO / EUROC), sysm.Sensor.MONOCULAR,
+                       device=device)
+    frame_ms = []
+    for k in range(N_FRAMES):
+        t0 = time.perf_counter()
+        slam.track_monocular(imgs[k], float(ts[k]))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    tracked = tracked_frames(slam)
+    n_kf = int(slam.map.n_kf)
+    out = dict(config="euroc_reloc", source=EUROC, device=str(device),
+               loop_closing=bool(slam.settings.loop_closing),
+               state=slam.get_tracking_state().name,
+               init_frame=tracked[0] if tracked else None, n_kf=n_kf,
+               n_lm=int(slam.map.lm_valid.sum()), n_tracked=len(tracked),
+               bow_rows=int(slam.bow_db.n),
+               ate_m=ate(slam, slam.get_frame_trajectory(), R_gt, t_gt),
+               median_frame_ms=statistics.median(frame_ms))
+    t_end = float(ts[-1])
+
+    k = RELOC_SHOW_FRAME
+    a = copy.deepcopy(slam)
+    pose_k = a.get_trajectory()[k][1]
+    _blackout(a)
+    lost = _lost_frame(a, imgs[k], t_end + 1.0)
+    out["blackout"] = dict(
+        show_frame=k, show_frame_tracked=k in tracked,
+        state=a.get_tracking_state().name, active=a.atlas.active,
+        n_maps=a.atlas.n_maps(), protected=a._map_protected,
+        centre_err_m=float(np.linalg.norm(
+            _centre(a.Tcw) - _centre(pose_k))), frame=lost)
+
+    b = copy.deepcopy(slam)
+    _blackout(b)
+    lost = _lost_frame(b, np.zeros_like(imgs[0]), t_end + 2.0)
+    out["blank"] = dict(state=b.get_tracking_state().name,
+                        n_maps=b.atlas.n_maps(), frame=lost)
+
+    with tempfile.TemporaryDirectory(dir=tmp_dir) as tmp:
+        path = slam.save_atlas(str(Path(tmp) / "atlas.npz"))
+        cfg = Path(tmp) / "euroc_resume.yaml"
+        cfg.write_text((REPO / EUROC).read_text()
+                       + f'\nSystem.LoadAtlasFromFile: "{path}"\n')
+        c = sysm.System(None, str(cfg), sysm.Sensor.MONOCULAR,
+                        device=device)
+    start = c.get_tracking_state().name
+    reload_frames = []
+    for j in range(RELOC_RETRIES):
+        reload_frames.append(_lost_frame(c, imgs[j], float(ts[j]) + 100.0))
+        if reload_frames[-1]["recovered"]:
+            break
+    out["reload"] = dict(start_state=start, state=c.get_tracking_state().name,
+                         frames_to_recover=len(reload_frames),
+                         n_kf=int(c.map.n_kf), n_maps=c.atlas.n_maps(),
+                         frames=reload_frames)
+
+    def noise_run(d, t):
+        """Noise frames until the Atlas changes: the frames lost, and the
+        state after."""
+        rng = np.random.default_rng(0)
+        n_maps, lost = d.atlas.n_maps(), []
+        for _ in range(d.LOST_FRAMES_NEW_MAP + 8):
+            t += 0.1
+            noise = rng.uniform(0, 255, imgs[0].shape).astype(np.float32)
+            if d.get_tracking_state() == sysm.TrackingState.OK:
+                d.track_monocular(noise, t)  # the frame that loses tracking
+            else:
+                lost.append(_lost_frame(d, noise, t))
+            if (d.atlas.n_maps() != n_maps
+                    or d.get_tracking_state()
+                    == sysm.TrackingState.NOT_INITIALIZED):
+                break
+        return dict(n_maps=d.atlas.n_maps(),
+                    state=d.get_tracking_state().name,
+                    map0_n_kf=int(d.atlas.maps[0].n_kf),
+                    active_n_kf=int(d.map.n_kf), lost_frames=len(lost),
+                    frames=lost)
+
+    out["new_map"] = noise_run(a, t_end + 3.0)
+    out["restart"] = noise_run(copy.deepcopy(slam), t_end)
+    noise_frames = out["new_map"]["frames"] + out["restart"]["frames"]
+    lost_all = ([out["blackout"]["frame"], out["blank"]["frame"]]
+                + reload_frames + noise_frames)
+    rec = [f["ms"] for f in lost_all if f["recovered"]]
+    not_rec = [f["ms"] for f in lost_all if not f["recovered"]]
+    out["lost_frame_ms"] = dict(
+        recovered=statistics.median(rec) if rec else None,
+        not_recovered=statistics.median(not_rec) if not_rec else None,
+        n_recovered=len(rec), n_not_recovered=len(not_rec))
+    out["lost_launches"] = dict(
+        match=sum(f["match_launches"] for f in lost_all),
+        pose=sum(f["pose_launches"] for f in lost_all))
+    return out
+
+
+def reloc_failures(r: dict) -> list:
+    """The bars of phase 8 that `run_reloc`'s result `r` misses."""
+    bad = []
+    a, b, c, d = r["blackout"], r["blank"], r["reload"], r["new_map"]
+    e = r["restart"]
+    if r["state"] != "OK" or not r["loop_closing"]:
+        bad.append(f"the clip ends {r['state']}, loop closing "
+                   f"{r['loop_closing']}")
+    if r["bow_rows"] != r["n_kf"]:
+        bad.append(f"{r['bow_rows']} BoW rows for {r['n_kf']} keyframes")
+    if not (a["show_frame_tracked"] and a["state"] == "OK"
+            and a["active"] == 0 and a["n_maps"] == 1
+            and a["centre_err_m"] < RELOC_CENTRE_M):
+        bad.append(f"blackout: {a}")
+    if b["state"] != "LOST" or b["n_maps"] != 2:
+        bad.append(f"blank frame: {b}")
+    if not (c["start_state"] == "LOST" and c["state"] == "OK"
+            and c["n_kf"] >= r["n_kf"] and c["n_maps"] == 1):
+        bad.append(f"reload: {c}")
+    if not (d["n_maps"] == 2 and d["state"] == "NOT_INITIALIZED"
+            and d["map0_n_kf"] == r["n_kf"] and d["active_n_kf"] == 0):
+        bad.append(f"new map: {d}")
+    small = r["n_kf"] < sysm.System.MIN_KFS_KEEP_MAP
+    if not (e["state"] == "NOT_INITIALIZED" and e["active_n_kf"] == 0
+            and e["n_maps"] == (1 if small else 2)):
+        bad.append(f"restart of a {r['n_kf']}-keyframe map: {e}")
+    return bad
+
+
+# --------------------------------------- loop closing (phase 9)
+
+LOOPY = dict(n_frames=280, width=640, height=480, fx=450.0, fps=10.0, seed=3)
+
+
+def loopy_settings(loop_closing: bool) -> str:
+    """`runtime/bench_eval.py`'s settings template at the clip's camera
+    (1000 features, 8 levels), with `loopClosing` set."""
+    c = LOOPY
+    return ("%YAML:1.0\nFile.version: \"1.0\"\nCamera.type: \"Rectified\"\n"
+            f"Camera1.fx: {c['fx']}\nCamera1.fy: {c['fx']}\n"
+            f"Camera1.cx: {c['width'] / 2.0}\n"
+            f"Camera1.cy: {c['height'] / 2.0}\n"
+            f"Camera.width: {c['width']}\nCamera.height: {c['height']}\n"
+            f"Camera.fps: {c['fps']}\nCamera.RGB: 1\nStereo.b: 0.0\n"
+            "ORBextractor.nFeatures: 1000\nORBextractor.scaleFactor: 1.2\n"
+            "ORBextractor.nLevels: 8\nORBextractor.iniThFAST: 20\n"
+            "ORBextractor.minThFAST: 7\n"
+            f"loopClosing: {int(loop_closing)}\n")
+
+
+def render_loopy():
+    c = LOOPY
+    return synthetic.render_room_sequence(
+        n_frames=c["n_frames"], width=c["width"], height=c["height"],
+        fx=c["fx"], fy=c["fx"], fps=c["fps"], seed=c["seed"],
+        traj=synthetic._loop_trajectory(c["n_frames"], c["fps"]))
+
+
+def run_loopy(device, frames, loop_closing: bool):
+    """The synth_loopy clip through `track_monocular` from a blank map.
+    Returns (result, System): Sim3-aligned ATE of `get_frame_trajectory()`
+    over the tracked frames, tracked frames, loops closed and maps merged,
+    ms per frame, and the frames on which a loop closed or maps merged with
+    their ms."""
+    device = torch.device(device)
+    imgs, R_gt, t_gt, ts = frames
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "synth_loopy.yaml"
+        path.write_text(loopy_settings(loop_closing))
+        slam = sysm.System(None, str(path), sysm.Sensor.MONOCULAR,
+                           device=device)
+    frame_ms, events = [], []
+    for k in range(len(imgs)):
+        n_ev = slam.n_loops_closed + slam.n_maps_merged
+        t0 = time.perf_counter()
+        slam.track_monocular(imgs[k], float(ts[k]))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        if slam.n_loops_closed + slam.n_maps_merged != n_ev:
+            events.append(dict(frame=k, ms=frame_ms[-1]))
+    tracked = tracked_frames(slam)
+    return dict(loop_closing=loop_closing, frames=len(imgs),
+                n_tracked=len(tracked),
+                ate_m=ate(slam, slam.get_frame_trajectory(), R_gt, t_gt),
+                loops_closed=slam.n_loops_closed,
+                maps_merged=slam.n_maps_merged, n_maps=slam.atlas.n_maps(),
+                n_kf=int(slam.map.n_kf), events=events,
+                median_frame_ms=statistics.median(frame_ms),
+                mean_frame_ms=statistics.fmean(frame_ms)), slam
+
+
+# ------------------------------- an in-map loop closure (phase 9b)
+
+CORRIDOR_ROOM = 32  # landmarks each corridor keyframe sees
+CORRIDOR_SETTINGS = "tests/data/synth_cam.yaml"
+
+
+class CorridorFeats(NamedTuple):
+    """The two fields of a frame's features that loop closing reads."""
+
+    signs: torch.Tensor
+    mask: torch.Tensor
+
+
+def aliased_corridor(slam: sysm.System, n_kf: int = 18,
+                     aliased_kfs=(17,), seed: int = 0) -> dict:
+    """Fill `slam`'s map with the corridor of the JAX loop-closing tests
+    (`tests/test_loop_closing_e2e.py`'s `_build_aliased_system`): keyframe
+    k at x = 0.5 k sees a block of its own CORRIDOR_ROOM landmarks (random
+    descriptors); keyframe 2 and every id in `aliased_kfs` see an exact
+    rigid copy of one room, so a keyframe of `aliased_kfs` is a revisit of
+    keyframe 2 that shares no landmark with it. Each keyframe gets its BoW
+    row; the System is left tracking. Returns {k: CorridorFeats}."""
+    dev = slam.device
+    cam = slam.cam
+    cap = slam.map_cfg.n_feat
+    N = CORRIDOR_ROOM
+    rng = np.random.default_rng(seed)
+
+    def bits_of(n):
+        return rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
+
+    def block():
+        return np.stack([rng.uniform(-1.5, 1.5, N), rng.uniform(-1.0, 1.0, N),
+                         rng.uniform(4.0, 6.0, N)], axis=-1).astype(np.float32)
+
+    def pad(a, fill=0):
+        full = np.full((cap,) + a.shape[1:], fill, a.dtype)
+        full[:len(a)] = a
+        return full
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    room_bits, room_rel = bits_of(N), block()
+    m, feats = slam.map, {}
+    ids = torch.arange(N, dtype=torch.int32, device=dev)
+    fv = pad(np.ones(N, bool), False)
+    for k in range(n_kf):
+        c_w = np.array([0.5 * k, 0.0, 0.0])
+        R = np.eye(3, dtype=np.float32)
+        tw = (-R @ c_w).astype(np.float32)
+        if k == 2 or k in aliased_kfs:
+            bits, X = room_bits, room_rel + c_w
+        else:
+            bits, X = bits_of(N), block() + c_w
+        X = X.astype(np.float32)
+        xc = X @ R.T + tw
+        uv = np.stack([cam.fx * xc[:, 0] / xc[:, 2] + cam.cx,
+                       cam.fy * xc[:, 1] / xc[:, 2] + cam.cy],
+                      axis=-1).astype(np.float32)
+        n_lm = int(m.n_lm)
+        kf_bits = t(pad(bits).view(np.int32))
+        m = ms.insert_keyframe(
+            m, t(R), t(tw), 0.1 * k, t(pad(uv)),
+            torch.zeros(cap, dtype=torch.int32, device=dev), kf_bits, t(fv),
+            t(pad(np.arange(n_lm, n_lm + N, dtype=np.int32), -1)))
+        m = ms.add_landmarks(m, t(X), t(bits.view(np.int32)),
+                             torch.ones(N, dtype=torch.bool, device=dev), k,
+                             k, ids, k, ids)
+        feats[k] = CorridorFeats(signs=desc_ops.signs_from_bits(kf_bits),
+                                 mask=t(fv))
+        slam.map = m
+        slam._add_bow_row(k, feats[k])
+    slam.state = sysm.TrackingState.OK
+    slam.kf_times = [0.1 * k for k in range(n_kf)]
+    return feats
+
+
+def run_corridor_loop(device) -> Tuple[dict, sysm.System]:
+    """An in-map loop closure through `System._try_close_loop` on the
+    corridor with keyframes 17 and 18 re-seeing keyframe 2's room:
+    keyframe 17's detection starts the temporal consistency, keyframe 18's
+    is verified (Sim3), corrected (essential graph), fused across the seam
+    and polished by the global BA. Returns (result, System): loops closed
+    after each call, ms of each call, and the corrected centres of
+    keyframes 2, 17 and 18."""
+    device = torch.device(device)
+    slam = sysm.System(None, str(REPO / CORRIDOR_SETTINGS),
+                       sysm.Sensor.MONOCULAR, device=device)
+    feats = aliased_corridor(slam, n_kf=19, aliased_kfs=(17, 18))
+    closed, call_ms = [], []
+    for k in (17, 18):
+        t0 = time.perf_counter()
+        slam._try_close_loop(k, feats[k])
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+        closed.append(slam.n_loops_closed)
+    m = slam.map
+    centres = {k: (-m.kf_R[k].T @ m.kf_t[k]).cpu().numpy().tolist()
+               for k in (2, 17, 18)}
+    return dict(loops_closed_after=closed, call_ms=call_ms,
+                last_loop_kf=slam.last_loop_kf, centres=centres,
+                finite=bool(torch.isfinite(m.kf_t).all()
+                            and torch.isfinite(m.lm_X).all())), slam
 
 
 def tracked_frames(slam: sysm.System) -> list:
@@ -402,7 +794,8 @@ def main(argv=None):
     ap.add_argument("--cpu-inputs", action="store_true")
     ap.add_argument("--init-offsets", type=int, nargs="+", default=[0])
     ap.add_argument("--config", default="euroc_mono",
-                    choices=["euroc_mono", *RIGS])
+                    choices=["euroc_mono", *RIGS, "euroc_reloc",
+                             "synth_loopy"])
     args = ap.parse_args(argv)
     cuda = torch.device(args.device).type == "cuda"
     if cuda and not torch.cuda.is_available():
@@ -412,7 +805,16 @@ def main(argv=None):
         if args.profile or args.cpu_inputs or args.init_offsets != [0]:
             ap.error("--profile, --cpu-inputs and --init-offsets apply to "
                      "euroc_mono only")
-        print(json.dumps(run_rig(args.config, args.device)))
+        if args.config == "euroc_reloc":
+            r = run_reloc(args.device)
+            r["failed_bars"] = reloc_failures(r)
+            print(json.dumps(r))
+        elif args.config == "synth_loopy":
+            frames = render_loopy()
+            for on in (True, False):
+                print(json.dumps(run_loopy(args.device, frames, on)[0]))
+        else:
+            print(json.dumps(run_rig(args.config, args.device)))
         return
     if args.profile and not cuda:
         ap.error("--profile traces a CUDA device")

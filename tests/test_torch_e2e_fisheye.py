@@ -3,8 +3,7 @@ rendered clips and bounds of `tests/test_e2e_fisheye.py`: fisheye mono
 (`track_monocular`; at least n - 8 tracked frames, Sim3-aligned ATE under
 0.08 m) and fisheye stereo through the general two-view rig
 (`track_stereo`; at least n - 8 tracked, ATE under 0.10 m, the unaligned
-trajectory length within 10%). The settings are the JAX test's, with
-loop closing off. The mono run draws its initializer's samples as the JAX
+trajectory length within 10%). The settings are the JAX test's. The mono run draws its initializer's samples as the JAX
 System does for the same frame (`test_torch_e2e_mono.jax_draws`).
 
 The frames come from the JAX package's renderer, so the port is held on
@@ -26,12 +25,6 @@ from tests.test_torch_e2e_stereo import (centres, length_error,
                                          two_threads)  # noqa: F401
 
 
-def _no_loop(path: str) -> str:
-    with open(path, "a") as f:
-        f.write("\nloopClosing: 0\n")
-    return path
-
-
 @pytest.mark.slow
 def test_port_e2e_fisheye_mono_tracks_rendered_kb8(
         tmp_path, two_threads, jax_draws):  # noqa: F811
@@ -39,7 +32,7 @@ def test_port_e2e_fisheye_mono_tracks_rendered_kb8(
     images, R_gt, t_gt, ts = jsynthetic.render_room_sequence_kb8(
         n_frames=n, cam=_cam(), fps=10.0, seed=2, traj_scale=0.8,
         noise_dn=2.0)
-    sys_ = System(None, _no_loop(_settings_file(str(tmp_path))),
+    sys_ = System(None, _settings_file(str(tmp_path)),
                   Sensor.MONOCULAR, device="cpu")
     for k in range(n):
         sys_.track_monocular(images[k], float(ts[k]))
@@ -59,8 +52,7 @@ def test_port_e2e_fisheye_stereo_metric_scale(tmp_path,
     images, images_r, R_gt, t_gt, ts = jsynthetic.render_room_sequence_kb8(
         n_frames=n, cam=_cam(), fps=10.0, seed=4, traj_scale=0.8,
         noise_dn=2.0, stereo_baseline=baseline)
-    sys_ = System(None, _no_loop(_settings_file(str(tmp_path),
-                                                baseline=baseline)),
+    sys_ = System(None, _settings_file(str(tmp_path), baseline=baseline),
                   Sensor.STEREO, device="cpu")
     assert sys_._stereo_right_raw  # the general two-view path
     for k in range(n):

@@ -3,8 +3,8 @@ from a blank map, on the rendered 40-frame clip of `tests/test_e2e_mono.py`
 and held to that test's bounds: state OK at the end, >= 4 keyframes, > 100
 valid landmarks, > 20 tracked frames, Sim3-aligned ATE < 0.05 m on the
 export surface (`get_frame_trajectory`) and < 0.12 m on the raw online
-trajectory. The settings are `tests/data/synth_cam.yaml` with loop closing
-off (this slice does not port it).
+trajectory. The settings are `tests/data/synth_cam.yaml` as the JAX test
+takes them (loop closing on: `loopClosing` is absent and defaults to 1).
 
 Both Systems key initialization attempt n by the frame index n, but their
 generators cannot draw the same numbers, and on this clip the ATE depends
@@ -28,13 +28,6 @@ from orb_slam3_ros2_tpu_torch.runtime.system import (Sensor, System,
                                                      TrackingState)
 
 SETTINGS = os.path.join(os.path.dirname(__file__), "data", "synth_cam.yaml")
-
-
-def mono_settings(tmp_path) -> str:
-    path = tmp_path / "synth_cam_no_loop.yaml"
-    with open(SETTINGS) as f:
-        path.write_text(f.read() + "\nloopClosing: 0\n")
-    return str(path)
 
 
 @pytest.fixture(scope="module")
@@ -84,11 +77,11 @@ def jax_draws(monkeypatch):
     return seen
 
 
-def test_port_e2e_mono_tracks_and_ate(rendered, tmp_path, two_threads,
+def test_port_e2e_mono_tracks_and_ate(rendered, two_threads,
                                       jax_draws):
     images, R_gt, t_gt, ts = rendered
-    sys_ = System(None, mono_settings(tmp_path), Sensor.MONOCULAR,
-                  device="cpu")
+    sys_ = System(None, SETTINGS, Sensor.MONOCULAR, device="cpu")
+    assert sys_.settings.loop_closing
     attempts = []
     for k in range(images.shape[0]):
         n = len(jax_draws)
@@ -120,33 +113,55 @@ def test_port_e2e_mono_tracks_and_ate(rendered, tmp_path, two_threads,
 @pytest.mark.parametrize("kwargs,item", [
     (dict(sensor=Sensor.IMU_STEREO), "7"), (dict(sensor=Sensor.IMU_RGBD), "7"),
     (dict(sensor=Sensor.IMU_MONOCULAR), "7"), (dict(pipelined=True), "10"),
-    (dict(vocab_path="vocab.txt"), "8"), (dict(load_atlas="atlas"), "8")])
-def test_left_out_parts_raise(tmp_path, kwargs, item):
-    settings = mono_settings(tmp_path)
-    vocab = kwargs.pop("vocab_path", None)
+    (dict(mesh=object()), "9")])
+def test_left_out_parts_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        System(vocab, settings, device="cpu", **kwargs)
+        System(None, SETTINGS, device="cpu", **kwargs)
 
 
-def test_loop_closing_settings_and_lost_branch_raise(tmp_path, rendered):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        System(None, SETTINGS, device="cpu")  # loopClosing defaults to 1
-    sys_ = System(None, mono_settings(tmp_path), device="cpu")
+@pytest.mark.parametrize("case", ["vocab_path", "load_atlas"])
+def test_vocab_and_atlas_inputs_accepted(tmp_path, case):
+    """A DBoW2 text vocabulary is installed as the System's codebook; an
+    atlas path that names no file starts a new Atlas."""
+    from orb_slam3_ros2_tpu_torch.loop import dbow2, vocab
+
+    if case == "vocab_path":
+        book = np.where(np.random.default_rng(4).random((1024, 256)) < 0.5,
+                        -1.0, 1.0).astype(np.float32)
+        path = dbow2.save_dbow2_text(str(tmp_path / "ORBvoc.txt"), book)
+        sys_ = System(path, SETTINGS, device="cpu")
+        np.testing.assert_array_equal(sys_.vocab.anchors.numpy(), book)
+    else:
+        sys_ = System(None, SETTINGS, device="cpu",
+                      load_atlas=str(tmp_path / "atlas"))
+        np.testing.assert_array_equal(sys_.vocab.anchors.numpy(),
+                                      vocab._anchors_np())
+        assert sys_.atlas.n_maps() == 1
+    assert sys_.get_tracking_state() == TrackingState.NOT_INITIALIZED
+
+
+def test_loop_closing_settings_and_lost_branch_accepted(rendered):
+    """The settings file as published (loopClosing defaults to 1) runs, and
+    a lost frame goes to relocalization: with an empty map nothing is
+    found, so the System stays LOST and counts the frame."""
+    sys_ = System(None, SETTINGS, device="cpu")
+    assert sys_.settings.loop_closing
     sys_.state = TrackingState.LOST
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sys_.track_monocular(rendered[0][0], 0.0)
+    T = sys_.track_monocular(rendered[0][0], 0.0)
+    assert np.isfinite(T).all()
+    assert sys_.get_tracking_state() == TrackingState.LOST
+    assert sys_.frames_lost == 1
 
 
 @pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
-def test_system_without_a_card_raises(tmp_path, monkeypatch, device):
+def test_system_without_a_card_raises(monkeypatch, device):
     """The System runs on the card unless the caller asks for the CPU:
     without one, the default device and any CUDA device raise."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     kwargs = {} if device is None else dict(device=device)
     with pytest.raises(RuntimeError, match='device="cpu"'):
-        System(None, mono_settings(tmp_path), **kwargs)
-    assert System(None, mono_settings(tmp_path),
-                  device="cpu").device.type == "cpu"
+        System(None, SETTINGS, **kwargs)
+    assert System(None, SETTINGS, device="cpu").device.type == "cpu"
 
 
 def test_system_run_without_a_card_exits(monkeypatch, capsys):

@@ -1,7 +1,7 @@
 """End-to-end RGB-D SLAM through the port's `System.track_rgbd` from a
 blank map, on the rendered 30-frame image + depth clip of
-`tests/test_e2e_rgbd.py` (`tests/data/synth_cam.yaml` plus
-`loopClosing: 0`) and held to that test's bounds: state OK at the end, more
+`tests/test_e2e_rgbd.py` (`tests/data/synth_cam.yaml`, loop closing on)
+and held to that test's bounds: state OK at the end, more
 than 15 tracked frames, the unaligned trajectory length within 10% of the
 ground truth's, Sim3-aligned ATE under 0.08 m. The path draws no random
 samples."""
@@ -15,7 +15,6 @@ from orb_slam3_ros2_tpu_torch.io import synthetic
 from orb_slam3_ros2_tpu_torch.runtime.system import (Sensor, System,
                                                      TrackingState)
 from tests.test_torch_e2e_stereo import (centres, length_error,
-                                         no_loop_settings,
                                          two_threads)  # noqa: F401
 
 SETTINGS = os.path.join(os.path.dirname(__file__), "data", "synth_cam.yaml")
@@ -41,7 +40,7 @@ def test_depth_maps_consistent_with_planes(rendered):
 def test_port_e2e_rgbd_metric_scale(rendered, tmp_path,
                                     two_threads):  # noqa: F811
     imgs, depths, R_gt, t_gt, ts = rendered
-    sys_ = System(None, no_loop_settings(SETTINGS, tmp_path), Sensor.RGBD,
+    sys_ = System(None, SETTINGS, Sensor.RGBD,
                   device="cpu")
     for k in range(imgs.shape[0]):
         T = sys_.track_rgbd(imgs[k], depths[k], float(ts[k]))

@@ -1,6 +1,6 @@
 """End-to-end stereo SLAM through the port's `System.track_stereo` from a
 blank map, on the rendered 30-frame clip of `tests/test_e2e_stereo.py`
-(`tests/data/synth_stereo.yaml` plus `loopClosing: 0`) and held to that
+(`tests/data/synth_stereo.yaml`, loop closing on) and held to that
 test's bounds: state OK at the end, more than 15 tracked frames, the
 unaligned trajectory length within 12% of the ground truth's (stereo
 observes metric scale), Sim3-aligned ATE under 0.08 m. The path draws no
@@ -18,13 +18,6 @@ from orb_slam3_ros2_tpu_torch.runtime.system import (Sensor, System,
 
 SETTINGS = os.path.join(os.path.dirname(__file__), "data", "synth_stereo.yaml")
 BASELINE = 0.12
-
-
-def no_loop_settings(src: str, tmp_path) -> str:
-    path = tmp_path / ("no_loop_" + os.path.basename(src))
-    with open(src) as f:
-        path.write_text(f.read() + "\nloopClosing: 0\n")
-    return str(path)
 
 
 @pytest.fixture
@@ -65,7 +58,7 @@ def rendered():
 
 def test_port_e2e_stereo_metric_scale(rendered, tmp_path, two_threads):
     imgs_l, imgs_r, R_gt, t_gt, ts = rendered
-    sys_ = System(None, no_loop_settings(SETTINGS, tmp_path), Sensor.STEREO,
+    sys_ = System(None, SETTINGS, Sensor.STEREO,
                   device="cpu")
     assert not sys_._stereo_right_raw  # the rectified scanline path
     for k in range(imgs_l.shape[0]):

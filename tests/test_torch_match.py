@@ -113,6 +113,34 @@ def test_match_window_at_fuse_settings_matches_jax():
     np.testing.assert_array_equal(got.dist.numpy()[v], np.asarray(ref.dist)[v])
 
 
+# relocalization's tries (runtime/system.py `_reloc_try`): from the last
+# pose at 80 px and from a BoW keyframe at 60 px, max_dist 45, ratio 0.9,
+# mutual
+RELOC = {r: dict(radius=r, max_dist=45.0, ratio=0.9, mutual=True)
+         for r in (80.0, 60.0)}
+
+
+@pytest.mark.parametrize("radius", [80.0, 60.0])
+def test_match_window_at_reloc_settings_matches_jax(radius):
+    """Port match_window (plain on CPU) vs the JAX dense matcher at
+    relocalization's windows, 1000 x 4096: idx, valid and dist exact."""
+    kw = RELOC[radius]
+    sa, ma, uva, sb, mb, uvb = _match_case(seed=6, N=1000, M=4096,
+                                           spread=20.0)
+    got = tfm.match_window(_bits(sa), torch.from_numpy(ma),
+                           torch.from_numpy(uva), _bits(sb),
+                           torch.from_numpy(mb), torch.from_numpy(uvb), **kw)
+    j = [jnp.asarray(a) for a in (sa, ma, uva, sb, mb, uvb)]
+    ref = jm.match(j[0], j[1], j[3], j[4], max_dist=kw["max_dist"],
+                   ratio=kw["ratio"], gate=jm.window_gate(j[2], j[5], radius),
+                   mutual=True)
+    assert int(ref.valid.sum()) > 20
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
+    np.testing.assert_array_equal(got.idx.numpy(), np.asarray(ref.idx))
+    v = np.asarray(ref.valid)
+    np.testing.assert_array_equal(got.dist.numpy()[v], np.asarray(ref.dist)[v])
+
+
 def test_match_window_nonmultiple_shapes():
     sa, ma, uva, sb, mb, uvb = _match_case(seed=3, N=77, M=131)
     got = tfm.match_window(_bits(sa), torch.from_numpy(ma),
@@ -166,7 +194,8 @@ def test_match_rotation_check_matches_jax():
 @pytest.mark.parametrize("M,kw", [
     (4096, dict(radius=15.0, ratio=0.9, mutual=True)),  # tracking
     (4096, dict(radius=15.0, ratio=None, mutual=False)),
-    (8192, FUSE)])  # SearchAndFuse: every landmark slot of the map
+    (8192, FUSE),  # SearchAndFuse: every landmark slot of the map
+    (4096, RELOC[80.0]), (4096, RELOC[60.0])])  # relocalization's tries
 def test_match_kernel_matches_plain_on_gpu(cuda_device, M, kw):
     sa, ma, uva, sb, mb, uvb = _match_case(seed=1, N=1000, M=M, spread=3.0)
     args = [_bits(sa), torch.from_numpy(ma), torch.from_numpy(uva),

@@ -255,15 +255,11 @@ def test_obs_from_depth_matches_jax(depth_map, max_depth):
     assert (ob_t.X_cam.numpy()[~valid] == 0).all()
 
 
-def test_system_selects_general_path(tmp_path):
-    """The port's copy of `tests/test_stereo_general.py`'s System case
-    (loop closing off, which this port requires)."""
-    paths = {}
-    for name in ("synth_kb8_stereo", "synth_stereo"):
-        src = os.path.join(os.path.dirname(__file__), "data", f"{name}.yaml")
-        paths[name] = tmp_path / f"{name}.yaml"
-        with open(src) as f:
-            paths[name].write_text(f.read() + "\nloopClosing: 0\n")
+def test_system_selects_general_path():
+    """The port's copy of `tests/test_stereo_general.py`'s System case."""
+    paths = {name: os.path.join(os.path.dirname(__file__), "data",
+                                f"{name}.yaml")
+             for name in ("synth_kb8_stereo", "synth_stereo")}
     sys_ = System(None, str(paths["synth_kb8_stereo"]), Sensor.STEREO,
                   device="cpu")
     assert sys_._stereo_right_raw  # general two-view path active

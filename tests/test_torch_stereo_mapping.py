@@ -21,6 +21,7 @@ from orb_slam3_ros2_tpu.frontend import stereo as jst
 from orb_slam3_ros2_tpu.ops import orb_descriptor as jdesc
 from orb_slam3_ros2_tpu_torch.atlas import map_state as tms
 from orb_slam3_ros2_tpu_torch.frontend import stereo as tst
+from orb_slam3_ros2_tpu_torch.ops import orb_descriptor as tdesc
 from orb_slam3_ros2_tpu_torch.runtime import system as tsys
 from tests.test_torch_map_state import (CX, CY, FX, FY, H, W,
                                         assert_maps_equal, jax_map,
@@ -67,10 +68,11 @@ def _features(new):
         uv=jnp.asarray(new["uv"]), level=jnp.asarray(new["level"]),
         bits=jnp.asarray(bits), mask=jnp.asarray(new["mask"]),
         signs=jdesc.signs_from_bits(jnp.asarray(bits)))
+    bits_t = torch.from_numpy(bits.view(np.int32))
     ft = types.SimpleNamespace(
         uv=torch.from_numpy(new["uv"]), level=torch.from_numpy(new["level"]),
-        bits=torch.from_numpy(bits.view(np.int32)),
-        mask=torch.from_numpy(new["mask"]))
+        bits=bits_t, mask=torch.from_numpy(new["mask"]),
+        signs=tdesc.signs_from_bits(bits_t))
     return fj, ft
 
 
@@ -113,6 +115,7 @@ def test_stereo_insertion_matches_jax_staged(jax_system, port_system):  # noqa: 
                                    err_msg=name)
     assert_maps_equal(mt, mj, skip=("kf_R", "kf_t", "lm_X"))
     assert ps.kf_times == js.kf_times
+    assert bool(ps.bow_db.valid[4])  # the new keyframe's BoW row, slot 4
 
     # the stereo stage spawned landmarks beyond what the mono step makes
     m_mono, _ = tsys.mapping_step(
