@@ -2,7 +2,8 @@
 """Run the PyTorch/CUDA port on one NVIDIA GPU: every kernel against its
 plain version, the per-frame tracking slice, the System in its
 monocular, stereo, RGB-D and fisheye-stereo configurations, relocalization
-and the Atlas on the stock EuRoC settings, and loop closing.
+and the Atlas on the stock EuRoC settings, loop closing, and the inertial
+sensors on the published EuRoC mono-inertial settings.
 
     python3 chip_smoke.py
 
@@ -110,9 +111,33 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    seam SearchAndFuse with the match kernel, global BA), and the
    corrected keyframe centres agree with the same run on the CPU within
    1e-3 m.
+10. Mono-inertial (`euroc_vi` of `tools/system_run.py`):
+   `config/Monocular-Inertial/EuRoC.yaml` as published (600x350 after its
+   resize, 1000 features, 8 levels, fps 20, `IMU.T_b_c1`, 200 Hz, loop
+   closing on) in IMU_MONOCULAR mode over 120 frames of the hard room
+   rendered through that radtan camera, with the 200 Hz IMU of the body
+   under `IMU.T_b_c1` (EuRoC-grade noise and bias walk, a gyro bias). Bars
+   (`system_run.vi_failures`, tests/test_e2e_vi.py's): the IMU initializes
+   (`is_imu_initialized`, `get_inertial_ba1`), state OK at the end, the
+   gyro bias within 2e-2, and after the VI init more than 20 frames, the
+   Umeyama scale within 10% and the unaligned length within 35% on
+   `get_frame_trajectory()`; the JAX System's numbers on the same clip on a
+   CPU are printed beside. Prints the ms of frames with and without an
+   insertion, of every VI-init, VI local BA, full inertial BA and scale
+   refinement call, one interval's preintegration (wall, device time and
+   launches from torch.profiler), and the dropped IMU samples; the match
+   and pose calls of the first tracked frames after the VI init are held
+   against their plain versions as in phase 8.
+10b. Stereo- and RGB-D-inertial: IMU_STEREO and IMU_RGBD on the clips of
+   tests/test_e2e_stereo_inertial.py and test_e2e_rgbd_inertial.py (320x240,
+   60 frames), held to those tests' bounds (`system_run.vi_rig_metrics`),
+   but for the stereo clip's length ratio: the JAX System fed the feature
+   sets that the card extracts misses the test's 12% there, so the bar is
+   its number (`STEREO_VI_LENGTH_JAX_CARD`), and the run's feature sets
+   must equal those it was read on (`tests/data/`; ROADMAP §3).
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
-per-kernel JSON record (`launches`: the sum over the runs of phases 3-9b,
+per-kernel JSON record (`launches`: the sum over the runs of phases 3-10b,
 each counted from 0 around its run; the per-level kernels: phase 2b; `ms`:
 device time per launch at the main-path shape, `wrapper_ms` the wrapper's
 time there), the line before that the card, and the one before that the
@@ -196,6 +221,27 @@ FX_LOOPY = 450.0  # the synth_loopy camera (640x480, centred)
 # coordinates, ulp 3e-5 px, so a 1 px residual's chi2 carries ~6e-5), and
 # the kernel, summing in another order, may take it the other way
 POSE_DECISION_NOISE = 1e-5
+# phase 10: the JAX System on the same clip on a CPU
+# (`scripts/jax_reference_runs.py --config euroc_vi`)
+VI_JAX_CPU = dict(vi_init_frame=41, n_kf=21, n_tracked=118,
+                  bg_err=0.000622, ate_m=0.025305, scale_err_end=0.056465,
+                  umeyama_scale=1.019000, length_ratio=1.132791)
+# phase 10b: the JAX System fed the feature sets that the card extracts
+# from the stereo-inertial clip (`tests/data/stereo_vi_card_features.npz`,
+# written by `tools/vi_rig_diff.py --save-features` on an H100; read by
+# `scripts/jax_reference_runs.py --config vi_rigs --features`, the same
+# number on two CPUs) reads a length ratio past the e2e test's 12%: on the
+# card's inputs the reference misses that bound, so it is the clip's bar
+# here, while the card's feature sets are those (ROADMAP §3;
+# tests/test_torch_vi_rig_replay.py holds the port to JAX on them)
+STEREO_VI_CARD_FEATURES = "tests/data/stereo_vi_card_features.npz"
+STEREO_VI_LENGTH_JAX_CARD = 1.154663
+# phase 10b: the JAX System on the same clips on a CPU (`--config vi_rigs`)
+VI_RIGS_JAX_CPU = dict(
+    synth_stereo_inertial=dict(bg_err=0.004206, ate_m=0.027805,
+                               length_ratio=1.071635),
+    synth_rgbd_inertial=dict(bg_err=0.003607, ate_m=0.016817,
+                             length_ratio=1.018267))
 # phase 9b: the corridor's corrected keyframe centres on the card against
 # the same run on the CPU (m)
 CORRIDOR_CENTRE_M = 1e-3
@@ -820,15 +866,16 @@ def add_launches(record, launches):
 
 # ------------------------------------------------------------ phases 4-7
 
-def drive(slam, step, n_frames: int, label: str) -> dict:
+def drive(slam, step, n_frames: int, label: str,
+          insert_name: str = "_insert_keyframe_fused") -> dict:
     """Feed frames 0..n_frames-1 to `step(k)` (one entry-point call) from a
     blank map, with every kernel's launch counter from 0, a host clock
-    around each frame and each keyframe insertion (ending in a device
-    synchronize), and SearchAndFuse's match-kernel launches and
-    `compact_landmarks`' calls recorded. Prints and returns the run's
-    counts and times; raises PhaseError unless the System ends tracking and
-    the match and pose kernels ran on every tracked frame and SearchAndFuse
-    once per inserted keyframe."""
+    around each frame and each keyframe insertion (`slam.<insert_name>`,
+    ending in a device synchronize), and SearchAndFuse's match-kernel
+    launches and `compact_landmarks`' calls recorded. Prints and returns
+    the run's counts and times; raises PhaseError unless the System ends
+    tracking and the match and pose kernels ran on every tracked frame and
+    SearchAndFuse once per inserted keyframe."""
     import torch
     from orb_slam3_ros2_tpu_torch.atlas import map_state as ms
     from orb_slam3_ros2_tpu_torch.backend import pose_opt_fused
@@ -851,7 +898,7 @@ def drive(slam, step, n_frames: int, label: str) -> dict:
         compactions.append(int(m.n_lm))
         return compact(m)
 
-    insert = slam._insert_keyframe_fused
+    insert = getattr(slam, insert_name)
 
     def timed_insert(*args, **kwargs):
         torch.cuda.synchronize()
@@ -860,7 +907,7 @@ def drive(slam, step, n_frames: int, label: str) -> dict:
         torch.cuda.synchronize()
         insert_ms.append((time.perf_counter() - t_ins) * 1e3)
 
-    slam._insert_keyframe_fused = timed_insert
+    setattr(slam, insert_name, timed_insert)
     counters = (fp.frontend_pass_packed, fm.match_window,
                 pose_opt_fused.optimize_pose_fused)
     for fn in counters:
@@ -998,12 +1045,13 @@ def _counters():
 
 
 @contextlib.contextmanager
-def recording(owner, name: str, limit: int = 4):
+def recording(owner, name: str, limit: int = 4, when=None):
     """For the block, the match and pose wrappers are replaced by
     recorders that call them (so they launch and count as before) and keep
     the (args, kwargs) of their first `limit` calls made inside
     `owner.name` (a System method or a module function, wrapped for the
-    block). Yields {"match": [...], "pose": [...]}."""
+    block) while `when()` holds (always without it). Yields
+    {"match": [...], "pose": [...]}."""
     from orb_slam3_ros2_tpu_torch.backend import pose_opt_fused
     from orb_slam3_ros2_tpu_torch.ops import fused_match as fm
 
@@ -1012,7 +1060,7 @@ def recording(owner, name: str, limit: int = 4):
     inside, calls = [False], {"match": [], "pose": []}
 
     def in_scope(*args, **kwargs):
-        inside[0] = True
+        inside[0] = when is None or when()
         try:
             return scoped(*args, **kwargs)
         finally:
@@ -1288,6 +1336,176 @@ def run_corridor(dev, record):
     return r
 
 
+# ----------------------------------------------------------- phase 10
+
+def _timed(slam, name: str, out: list, profile_call: int = -1,
+           traces: list = None):
+    """Wrap `slam.<name>` with a host clock ending in a synchronize (its
+    ms go to `out`); call number `profile_call` (from 0) is also traced
+    with torch.profiler, and its summary appended to `traces`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as trace
+    from orb_slam3_ros2_tpu_torch.tools import system_run as sr
+
+    fn = getattr(slam, name)
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if len(out) == profile_call:
+            with trace(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as p:
+                r = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            traces.append(sr.profile_summary(p, wall, name, 5))
+        else:
+            r = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    setattr(slam, name, timed)
+
+
+def run_euroc_vi(dev, record):
+    """Phase 10 through `drive`: `config/Monocular-Inertial/EuRoC.yaml` as
+    published in IMU_MONOCULAR mode, the 120-frame clip of
+    `system_run.render_euroc_vi` with its 200 Hz IMU, every kernel counter
+    from 0 around the run. Times every call of the VI initialization, the
+    VI local BA, the full inertial BA and the scale refinement, and traces
+    the third interval's preintegration (its launches); the match and pose
+    calls of the first tracked frames after the VI initialization are
+    recorded and held against their plain versions. The bars of
+    `system_run.vi_failures` raise PhaseError."""
+    from orb_slam3_ros2_tpu_torch.runtime import system as sysm
+    from orb_slam3_ros2_tpu_torch.tools import system_run as sr
+
+    t_render = time.perf_counter()
+    images, R_gt, t_gt, ts, imu = frames = sr.render_euroc_vi()
+    print(f"euroc_vi: rendered {len(images)} frames and "
+          f"{len(imu[0])} IMU samples in "
+          f"{time.perf_counter() - t_render:.2f} s")
+    slam = sr.make_vi_system(dev)
+    calls_ms = {k: [] for k in ("_run_vi_init", "_vi_local_ba_step",
+                                "_run_inertial_gba", "_refine_scale",
+                                "_finish_kf_preint")}
+    traces = []
+    for name, out in calls_ms.items():
+        _timed(slam, name, out, 2 if name == "_finish_kf_preint" else -1,
+               traces)
+    init_frame = []
+
+    def step(k):
+        t_prev = float(ts[k - 1]) if k else -1.0
+        T = slam.track_monocular(images[k], float(ts[k]),
+                                 sr.imu_points(imu, t_prev, float(ts[k])))
+        if slam.is_imu_initialized() and not init_frame:
+            init_frame.append(k)
+        return T
+
+    with recording(sysm.System, "_track", limit=4,
+                   when=lambda: slam.imu_initialized) as calls:
+        out = drive(slam, step, len(images), "euroc_vi",
+                    insert_name="_insert_keyframe_inertial")
+    r = dict(config="euroc_vi", source=sr.EUROC_VI, width=slam.cam.width,
+             height=slam.cam.height, n_features=slam.ex_cfg.n_features,
+             frames=len(images), state=slam.get_tracking_state().name,
+             vi_init_frame=init_frame[0] if init_frame else None,
+             dropped_imu_samples=slam.dropped_imu_samples,
+             **sr.vi_metrics(slam, R_gt, t_gt, sr.VI_TRUE_BG))
+    r.update(out)
+    r["call_ms"] = calls_ms
+    r["preint_trace"] = traces
+    r["failed_bars"] = sr.vi_failures(r)
+    r["jax_cpu"] = VI_JAX_CPU
+    print(f"euroc_vi: VI init at frame {r['vi_init_frame']} (JAX "
+          f"{VI_JAX_CPU['vi_init_frame']}), {r['n_kf']} keyframes (JAX "
+          f"{VI_JAX_CPU['n_kf']}), {r['n_tracked']} tracked, IMU initialized "
+          f"{r['imu_initialized']}, BA1 {r['inertial_ba1']}, BA2 "
+          f"{r['inertial_ba2']}; gyro bias error {r['bg_err']:.3g}; "
+          f"after the init {r['n_post_init']} frames, Umeyama scale "
+          f"{r.get('umeyama_scale')} (JAX {VI_JAX_CPU['umeyama_scale']}), "
+          f"length ratio {r.get('length_ratio')} (JAX "
+          f"{VI_JAX_CPU['length_ratio']}); ATE {r.get('ate_m')} m (JAX "
+          f"{VI_JAX_CPU['ate_m']}), end scale error "
+          f"{r.get('scale_err_end')} (JAX {VI_JAX_CPU['scale_err_end']}); "
+          f"dropped IMU samples {r['dropped_imu_samples']}")
+    print(f"euroc_vi: ms of the calls: " + "; ".join(
+        f"{k.strip('_')} {[round(x, 2) for x in v]}"
+        for k, v in calls_ms.items()))
+    for t in traces:
+        print(f"euroc_vi: one interval's preintegration: {t['wall_ms']:.2f}"
+              f" ms wall, {t['device_ms']:.3f} ms device, "
+              f"{t['kernel_launches']} kernel launches")
+    require(not r["failed_bars"], f"euroc_vi: {r['failed_bars']}")
+    require(r["launches"]["frontend_packed"] == len(images),
+            "euroc_vi: frontend kernel not once per frame")
+    require(calls["match"] and calls["pose"],
+            "euroc_vi: no match or pose call recorded after the VI init")
+    r["checked"] = check_recorded(calls, "euroc_vi")
+    print(f"euroc_vi: kernels against their plain versions on the recorded "
+          f"tracking inputs after the VI init: {r['checked']}")
+    add_launches(record, r["launches"])
+    return r
+
+
+def run_vi_rigs(dev, record):
+    """Phase 10b: IMU_STEREO and IMU_RGBD on the clips of the JAX e2e
+    tests through `drive`, each with every kernel counter from 0, held to
+    the tests' bounds (`system_run.vi_rig_metrics`); the stereo clip's
+    length ratio to the JAX System's on the card's feature sets
+    (`STEREO_VI_LENGTH_JAX_CARD`), which the run's feature sets must be."""
+    import dataclasses
+
+    from orb_slam3_ros2_tpu_torch.runtime import system as sysm
+    from orb_slam3_ros2_tpu_torch.tools import system_run as sr
+    from orb_slam3_ros2_tpu_torch.tools import vi_rig_diff
+
+    out = {}
+    for name, rig in sr.VI_RIGS.items():
+        frames = sr.render_vi_rig(rig)
+        slam = sr.make_vi_rig_system(rig, dev)
+        stereo = rig.sensor == sysm.Sensor.IMU_STEREO
+        calls = []
+        if stereo:
+            vi_rig_diff.record_features(slam, calls)
+        r = drive(slam, lambda k: sr.track_vi_rig(slam, rig, frames, k),
+                  rig.n_frames, name,
+                  insert_name="_insert_keyframe_inertial")
+        if stereo:
+            ref = np.load(ROOT / STEREO_VI_CARD_FEATURES)
+            same = sum(all(np.array_equal(c[k], ref[k][i])
+                           for k in vi_rig_diff.FEATURE_FIELDS)
+                       for i, c in enumerate(calls))
+            print(f"{name}: {same} of {len(calls)} feature sets equal "
+                  f"those of {STEREO_VI_CARD_FEATURES}")
+            require(same == len(calls) == len(ref["mask"]),
+                    f"{name}: the card's feature sets are not those the "
+                    f"JAX System's length ratio {STEREO_VI_LENGTH_JAX_CARD} "
+                    f"was read on")
+            rig = dataclasses.replace(
+                rig, length_tol=STEREO_VI_LENGTH_JAX_CARD - 1.0)
+        r.update(sr.vi_rig_metrics(slam, rig, frames[2], frames[3]))
+        r["jax_cpu"] = jax = VI_RIGS_JAX_CPU[name]
+        print(f"{name}: IMU initialized {r['imu_initialized']}, gyro bias "
+              f"error {r['bg_err']:.3g} (JAX {jax['bg_err']}, bar "
+              f"{rig.bg_tol}), ATE {r.get('ate_m')} m (JAX {jax['ate_m']}), "
+              f"length ratio {r.get('length_ratio')} (JAX "
+              f"{jax['length_ratio']}"
+              + (f"; on the card's feature sets {STEREO_VI_LENGTH_JAX_CARD}"
+                 if stereo else "")
+              + f", bar 1 +- {rig.length_tol:.6g}), {r['n_kf']} keyframes")
+        require(not r["failed_bars"], f"{name}: {r['failed_bars']}")
+        per_frame = 2 if stereo else 1
+        require(r["launches"]["frontend_packed"] == per_frame * rig.n_frames,
+                f"{name}: frontend kernel launched "
+                f"{r['launches']['frontend_packed']} times")
+        add_launches(record, r["launches"])
+        out[name] = r
+    return out
+
+
 def check_global_ba(dev, m):
     """`tracking.global_ba` as `System._run_global_ba` runs it (the live
     keyframes padded to a power of 2, keyframe 0 fixed, 8 iterations) on
@@ -1425,6 +1643,8 @@ def main() -> int:
     reloc = run_reloc(dev, record)
     loopy = run_loopy(dev, record)
     loopy["corridor"] = run_corridor(dev, record)
+    euroc_vi = run_euroc_vi(dev, record)
+    vi_rigs = run_vi_rigs(dev, record)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "wrapper_ms")
@@ -1441,7 +1661,8 @@ def main() -> int:
                       "stereo": rigs["kitti_stereo"],
                       "rgbd": rigs["tum1_rgbd"],
                       "fisheye_stereo": rigs["tumvi_stereo"],
-                      "euroc_reloc": reloc, "synth_loopy": loopy}))
+                      "euroc_reloc": reloc, "synth_loopy": loopy,
+                      "euroc_vi": euroc_vi, "vi_rigs": vi_rigs}))
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ numpy-only pieces copied verbatim from `orb_slam3_ros2_tpu/io/synthetic.py`
 `_texture`, `render_sequence`: lines 154-251; the textured room and
 `render_room_sequence_kb8`: lines 259-322, 355-363, 435-545;
 `_render_planes`, `render_room_sequence`: lines 325-352, 366-432;
-`umeyama_scale`, `ate_rmse`: lines 606-645), and the leave-and-return
+`umeyama_scale`, `ate_rmse`: lines 606-645; `GRAVITY`, `make_imu`: lines
+27, 548-603), and the leave-and-return
 trajectory of the loop-closing clip (`_WaypointTrajectory`,
 `_loop_trajectory`, from `orb_slam3_ros2_tpu/runtime/bench_eval.py:130-197`),
 so that a machine without JAX can render the same frames from the same seed
@@ -21,6 +22,8 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+
+GRAVITY = np.array([0.0, 0.0, -9.81])
 
 
 def _so3_exp_np(phi: np.ndarray) -> np.ndarray:
@@ -519,6 +522,65 @@ def _loop_trajectory(n_frames: int, fps: float) -> _WaypointTrajectory:
         (0.88 * T, (-0.5, 0.0, 0.0), -2 * pi),
         (1.00 * T, (0.4, 0.1, 0.3), -2 * pi - 0.25),
     ])
+
+
+def make_imu(
+    traj,
+    t0: float,
+    t1: float,
+    rate: float = 200.0,
+    gyro_noise: float = 0.0,
+    acc_noise: float = 0.0,
+    gyro_bias: Optional[np.ndarray] = None,
+    acc_bias: Optional[np.ndarray] = None,
+    gyro_walk: float = 0.0,
+    acc_walk: float = 0.0,
+    seed: int = 0,
+):
+    """Sample gyro/accel along the trajectory (central finite differences).
+
+    Returns (t (M,), gyro (M, 3), acc (M, 3)) in body frame; accelerometer
+    measures specific force f_b = R_bw (a_w - g_w), g_w = (0,0,-9.81).
+    `traj` is any object with `rotation(t)` and `position(t)` (world from
+    body) over an array of times.
+
+    `gyro_walk`/`acc_walk` are bias random-walk densities (rad/s/s/√Hz,
+    m/s²/s/√Hz — the `IMU.GyroWalk`/`IMU.AccWalk` settings keys); the
+    white-noise args are per-sample σ, i.e. density·√rate. EuRoC-grade
+    realism at 200 Hz: gyro_noise=1.7e-4*√200≈2.4e-3, acc_noise=2e-3*√200≈
+    2.8e-2, gyro_walk=1.9e-5, acc_walk=3e-3.
+    """
+    rng = np.random.default_rng(seed)
+    dt = 1.0 / rate
+    t = np.arange(t0, t1, dt)
+    h = 1e-4
+
+    Rm = traj.rotation(t - h)
+    Rp = traj.rotation(t + h)
+    R = traj.rotation(t)
+    # gyro: log(R(t)^T R(t+h)) / h ≈ vee(R^T (Rp - Rm) / 2h)
+    dR = np.einsum("kji,kjl->kil", R, (Rp - Rm) / (2 * h))
+    gyro = np.stack([dR[:, 2, 1], dR[:, 0, 2], dR[:, 1, 0]], axis=-1)
+
+    pm = traj.position(t - h)
+    pp = traj.position(t + h)
+    p = traj.position(t)
+    a_w = (pp - 2 * p + pm) / (h * h)
+    acc = np.einsum("kji,kj->ki", R, a_w - GRAVITY)
+
+    if gyro_bias is not None:
+        gyro = gyro + gyro_bias
+    if acc_bias is not None:
+        acc = acc + acc_bias
+    if gyro_walk > 0:
+        gyro = gyro + np.cumsum(
+            rng.normal(0, gyro_walk * np.sqrt(dt), gyro.shape), axis=0)
+    if acc_walk > 0:
+        acc = acc + np.cumsum(
+            rng.normal(0, acc_walk * np.sqrt(dt), acc.shape), axis=0)
+    gyro = gyro + rng.normal(0, gyro_noise, gyro.shape)
+    acc = acc + rng.normal(0, acc_noise, acc.shape)
+    return t, gyro.astype(np.float64), acc.astype(np.float64)
 
 
 def umeyama_scale(t_est: np.ndarray, t_gt: np.ndarray) -> float:

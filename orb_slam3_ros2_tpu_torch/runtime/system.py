@@ -22,9 +22,20 @@ failures a new map is spawned. Keyframe k's BoW row is slot k (the JAX
 System gives the initializer's keyframes no row, so its slots trail the
 keyframe ids; ROADMAP.md §3).
 
+The inertial sensors (IMU_MONOCULAR, IMU_STEREO, IMU_RGBD) buffer the IMU
+samples each frame brings, predict the pose by integrating them once the
+IMU is initialized, and insert keyframes on the staged path of the JAX
+System (`_insert_keyframe`, :1580-1696): `insert_and_fuse` runs the
+visual insertion through the SearchAndFuse, the interval since the last
+keyframe is preintegrated, then either a visual-inertial window BA or the
+visual window BA (`window_ba`) runs, then the culling, and then the inertial schedule: the VI initialization, a full
+inertial BA at FULL_VIBA_AT intervals and the scale refinement. Loop
+closing runs the full inertial BA instead of the visual global BA once the
+IMU is initialized, and its Sim3 keeps the scale.
+
 What this slice leaves out raises `NotImplementedError` naming the ROADMAP
-item it waits on (`ROADMAP.md` §1): the inertial sensors (item 7), a device
-mesh (item 9) and the pipelined mode (item 10).
+item it waits on (`ROADMAP.md` §1): a device mesh (item 9) and the
+pipelined mode (item 10).
 """
 
 from __future__ import annotations
@@ -41,11 +52,15 @@ import torch
 from orb_slam3_ros2_tpu_torch.atlas import atlas as atlas_mod
 from orb_slam3_ros2_tpu_torch.atlas import map_state as ms
 from orb_slam3_ros2_tpu_torch.atlas import merging as merging_mod
+from orb_slam3_ros2_tpu_torch.backend import ba as ba_mod
+from orb_slam3_ros2_tpu_torch.backend import vi_ba as vi_ba_mod
 from orb_slam3_ros2_tpu_torch.frontend import extractor as ex
 from orb_slam3_ros2_tpu_torch.frontend import initializer as init_mod
 from orb_slam3_ros2_tpu_torch.frontend import stereo as stereo_mod
 from orb_slam3_ros2_tpu_torch.frontend import tracking as trk
 from orb_slam3_ros2_tpu_torch.geom import lie
+from orb_slam3_ros2_tpu_torch.imu import preintegration as pre_mod
+from orb_slam3_ros2_tpu_torch.imu import vi_init as vii
 from orb_slam3_ros2_tpu_torch.io import settings as settings_mod
 from orb_slam3_ros2_tpu_torch.loop import closing as closing_mod
 from orb_slam3_ros2_tpu_torch.loop import dbow2 as dbow2_mod
@@ -107,14 +122,13 @@ def add_stereo_landmarks(m: ms.MapState, kf_id, R, t, bits, mask, X_cam,
                             feat, kf_id, feat)
 
 
-def mapping_step(m: ms.MapState, R, t, timestamp, uv, level, bits, mask,
-                 obs_clean, fx, fy, cx, cy, width, height, n_window: int,
-                 n_fixed_ring: int, ba_iters: int = 10, stereo=None):
-    """The whole visual keyframe insertion (the JAX `mapping_step`,
-    `runtime/system.py:369-418`): insert the keyframe → triangulate against
-    its predecessor → add landmarks → pick the most covisible second
-    partner → strict triangulation → add → SearchAndFuse → covisibility-
-    window local BA → landmark culling.
+def insert_and_fuse(m: ms.MapState, R, t, timestamp, uv, level, bits, mask,
+                    obs_clean, fx, fy, cx, cy, width, height, stereo=None):
+    """A keyframe's insertion through the SearchAndFuse (the JAX
+    `mapping_step`, `runtime/system.py:369-418`, up to its local BA):
+    insert the keyframe → triangulate against its predecessor → add
+    landmarks → pick the most covisible second partner → strict
+    triangulation → add → SearchAndFuse.
 
     `stereo` = (X_cam (N, 3), valid (N,)) adds the rig sensors' stage after
     the triangulations, in the order of the JAX staged
@@ -123,9 +137,8 @@ def mapping_step(m: ms.MapState, R, t, timestamp, uv, level, bits, mask,
     from before BA (`add_stereo_landmarks`).
 
     Keyframe ids stay 0-dim device tensors and the second partner's
-    validity is a device-side mask, so the step makes no host sync. Returns
-    (m', summary) with summary = [R(9), t(3), n_kf, n_lm] of the new
-    keyframe after BA, as one (14,) tensor."""
+    validity is a device-side mask, so the step makes no host sync.
+    Returns (m', new keyframe id as a 0-dim tensor)."""
     new_id = m.n_kf.long()
     prev_id = new_id - 1
     m = ms.insert_keyframe(m, R, t, timestamp, uv, level, bits, mask,
@@ -145,20 +158,45 @@ def mapping_step(m: ms.MapState, R, t, timestamp, uv, level, bits, mask,
     if stereo is not None:
         m = add_stereo_landmarks(m, new_id, R, t, bits, mask, *stereo)
     m, _, _ = trk.fuse_map_points(m, new_id, fx, fy, cx, cy, width, height)
+    return m, new_id
+
+
+def window_ba(m: ms.MapState, new_id, fx, fy, cx, cy, n_window: int,
+              n_fixed_ring: int, ba_iters: int = 10) -> ms.MapState:
+    """The visual local BA over `new_id`'s covisibility window."""
     ids, fix = trk.select_local_window(m, new_id, n_window=n_window,
                                        n_fixed_ring=n_fixed_ring)
-    m = trk.local_ba(m, ids, fix, fx, fy, cx, cy, n_iters=ba_iters)
-    m = trk.cull_landmarks(m)
-    summary = torch.cat([
+    return trk.local_ba(m, ids, fix, fx, fy, cx, cy, n_iters=ba_iters)
+
+
+def keyframe_summary(m: ms.MapState, new_id) -> torch.Tensor:
+    """[R(9), t(3), n_kf, n_lm] of keyframe `new_id`, as one (14,) tensor
+    (one fetch)."""
+    return torch.cat([
         ms.row(m.kf_R, new_id).reshape(-1), ms.row(m.kf_t, new_id),
         torch.stack([m.n_kf.to(torch.float32), m.n_lm.to(torch.float32)]),
     ])
-    return m, summary
+
+
+def mapping_step(m: ms.MapState, R, t, timestamp, uv, level, bits, mask,
+                 obs_clean, fx, fy, cx, cy, width, height, n_window: int,
+                 n_fixed_ring: int, ba_iters: int = 10, stereo=None):
+    """The whole visual keyframe insertion (the JAX `mapping_step`,
+    `runtime/system.py:369-418`): `insert_and_fuse` → covisibility-window
+    local BA (`window_ba`) → landmark culling, with no host sync. Returns
+    (m', summary) with the `keyframe_summary` of the new keyframe after
+    BA."""
+    m, new_id = insert_and_fuse(m, R, t, timestamp, uv, level, bits, mask,
+                                obs_clean, fx, fy, cx, cy, width, height,
+                                stereo=stereo)
+    m = window_ba(m, new_id, fx, fy, cx, cy, n_window, n_fixed_ring,
+                  ba_iters)
+    m = trk.cull_landmarks(m)
+    return m, keyframe_summary(m, new_id)
 
 
 class Sensor(enum.IntEnum):
-    """Sensor modes (the reference's enum). MONOCULAR, STEREO and RGBD are
-    ported; the IMU_* modes wait on ROADMAP §1 item 7."""
+    """Sensor modes (the reference's enum)."""
 
     MONOCULAR = 0
     STEREO = 1
@@ -166,6 +204,72 @@ class Sensor(enum.IntEnum):
     IMU_MONOCULAR = 3
     IMU_STEREO = 4
     IMU_RGBD = 5
+
+
+IMU_MODES = (Sensor.IMU_MONOCULAR, Sensor.IMU_STEREO, Sensor.IMU_RGBD)
+# modes whose maps are born at metric scale (loop-closing Sim3 fixes s = 1)
+METRIC_MODES = (Sensor.STEREO, Sensor.RGBD, Sensor.IMU_STEREO,
+                Sensor.IMU_RGBD)
+
+
+class ImuPoint:
+    """One IMU measurement (the reference's `ORB_SLAM3::IMU::Point`):
+    accelerometer (m/s²), gyroscope (rad/s), time (s)."""
+
+    __slots__ = ("acc", "gyro", "t")
+
+    def __init__(self, acc, gyro, t):
+        self.acc = np.asarray(acc, np.float64)
+        self.gyro = np.asarray(gyro, np.float64)
+        self.t = float(t)
+
+
+def apply_sim3_to_map(m: ms.MapState, R_align, s) -> ms.MapState:
+    """x_new = s · R_align x_old on every landmark and keyframe; poses stay
+    consistent (the JAX `apply_sim3_to_map`, `runtime/system.py:468-476`)."""
+    lm_X = s * (m.lm_X @ R_align.T)
+    kf_R = m.kf_R @ R_align.T[None]
+    kf_t = s * m.kf_t
+    return m._replace(lm_X=lm_X, kf_R=kf_R, kf_t=kf_t)
+
+
+def vi_ba2(m: ms.MapState, window_ids, fixed_mask, pres, v0, bg, ba, fx, fy,
+           cx, cy, R_bc, t_bc, n_iters: int = 8, opt_gravity: bool = True,
+           n_inertial: Optional[int] = None):
+    """VIBA2 / LocalInertialBA over a consecutive-keyframe window, written
+    back into the map (the JAX `vi_ba2`, `runtime/system.py:553-605`).
+
+    `window_ids` may carry trailing visual-only anchor keyframes past the
+    `n_inertial` intervals of the consecutive block (the fixed covisible
+    ring); duplicate ids deactivate past their first occurrence, as in
+    `local_ba`. The accel-bias prior is anchored at zero, not at the
+    running estimate: at these excitations ba is confounded with scale, and
+    a prior re-centred on each window let it absorb a 23% map-scale error
+    in the JAX package. Returns (m', v, bg, ba, cost, thg)."""
+    W = window_ids.shape[0]
+    dev = window_ids.device
+    same = window_ids[None, :] == window_ids[:, None]
+    earlier = torch.ones((W, W), dtype=torch.bool, device=dev).tril(-1)
+    first_occurrence = ~(same & earlier).any(dim=1)
+    uv_t, w_t, kf_ok = ms.observation_table(m, window_ids)
+    active = kf_ok & first_occurrence
+    ids = window_ids.long()
+    p = ba_mod.BAProblem(
+        R=m.kf_R[ids], t=m.kf_t[ids], X=m.lm_X, uv=uv_t,
+        w=w_t * active[:, None], fixed=fixed_mask | ~active,
+        point_valid=m.lm_valid)
+    out = vi_ba_mod.vi_bundle_adjust(
+        p, pres, v0, bg, ba, fx, fy, cx, cy, R_bc=R_bc, t_bc=t_bc,
+        n_iters=n_iters, opt_gravity=opt_gravity, n_inertial=n_inertial,
+        prior_bg=1e2, prior_ba=1e6, ba_prior_center=torch.zeros_like(ba))
+    K = m.kf_R.shape[0]
+    write_ids = torch.where(active, ids, K)
+    kf_R = ms._scatter_drop(m.kf_R, write_ids, out.R)
+    kf_t = ms._scatter_drop(m.kf_t, write_ids, out.t)
+    moved = (w_t * active[:, None]).sum(0) > 0
+    lm_X = torch.where(moved[:, None], out.X, m.lm_X)
+    return (m._replace(kf_R=kf_R, kf_t=kf_t, lm_X=lm_X), out.v, out.bg,
+            out.ba, out.cost, out.thg)
 
 
 class TrackingState(enum.IntEnum):
@@ -181,7 +285,8 @@ def _not_ported(what: str, item: str):
 
 class System:
     """SLAM engine with the reference System's API: the synchronous
-    monocular, stereo and RGB-D subset of the JAX `System`."""
+    monocular, stereo and RGB-D System of the JAX package, with or without
+    an IMU."""
 
     MIN_INIT_MATCHES = 90
     MIN_TRACK_INLIERS = MIN_TRACK_INLIERS
@@ -189,9 +294,16 @@ class System:
     LOCAL_WINDOW = 8  # covisible keyframes optimized by local BA
     LOCAL_FIXED_RING = 4  # second-ring observers held fixed in local BA
     MATCH_CAP_VISIBLE = MATCH_CAP_VISIBLE
-    VI_INIT_KFS = 8  # kept for the keyframe-culling protection window
-    VI_LOCAL_WINDOW = 6
-    VI_FIXED_RING = 4
+    VI_INIT_KFS = 8  # keyframes before attempting VI initialization
+    VI_LOCAL_WINDOW = 6  # keyframes in the local inertial BA window
+    VI_FIXED_RING = 4  # fixed covisible anchors appended to the VI window
+    # the inertial schedule, on the count of stored inter-keyframe
+    # intervals: scale/gravity refinements (the reference re-runs the
+    # inertial-only optimization as excitation accumulates), full joint VI
+    # BA (FullInertialBA), and the longest refinement window
+    SCALE_REFINE_AT = (8, 12, 16, 24, 32, 48, 64)
+    FULL_VIBA_AT = (11, 21)
+    SCALE_REFINE_MAX_INT = 48
 
     LM_COMPACT_FRAC = 0.90  # landmark-slot occupancy that triggers compaction
     KF_CULL_HEADROOM = 3  # free keyframe slots to maintain
@@ -215,13 +327,11 @@ class System:
         only when the caller passes device="cpu")."""
         del init_frame
         self.sensor = Sensor(sensor)
-        if self.sensor not in (Sensor.MONOCULAR, Sensor.STEREO, Sensor.RGBD):
-            _not_ported(f"sensor {self.sensor.name}", "7")
         if pipelined:
             _not_ported("the pipelined mode", "10")
         if mesh is not None:
             _not_ported("a device mesh (the sharded global BA)", "9")
-        self._metric_scale = self.sensor in (Sensor.STEREO, Sensor.RGBD)
+        self._metric_scale = self.sensor in METRIC_MODES
         self.settings = settings_mod.load_settings(settings_path)
         self.use_viewer = use_viewer
         self.device = torch.device("cuda" if device is None else device)
@@ -268,6 +378,17 @@ class System:
         else:
             self.stereo_baseline = float(self.settings.stereo_b
                                          or cam.baseline or 0.05)
+        # the IMU: body-from-camera extrinsic (identity without
+        # `IMU.T_b_c1`), and the per-frame preintegration batch size of the
+        # JAX System (4 frames of samples, at least 16); an interval keeps
+        # at most 4 of those
+        T_bc = (np.asarray(self.settings.T_b_c1, np.float64)
+                if self.settings.T_b_c1 is not None else np.eye(4))
+        self._T_bc = T_bc
+        self._R_bc = self._tensor(T_bc[:3, :3])
+        self._t_bc = self._tensor(T_bc[:3, 3])
+        self._pre_cap = max(int(4.0 * self.settings.imu_frequency
+                                / max(self.settings.fps, 1.0)), 16)
         self.reset()
         # `System.LoadAtlasFromFile`: a missing file starts a new Atlas; a
         # loaded one is relocalized into, and never discarded
@@ -319,6 +440,21 @@ class System:
         self.frames_lost = 0
         # temporal consistency: [(covisible group, count), ...]
         self._loop_consistency: List[Tuple[set, int]] = []
+        # the IMU
+        self.imu_initialized = False
+        self.inertial_ba1 = False
+        self.inertial_ba2 = False
+        self.kf_preints: List[pre_mod.Preintegrated] = []  # between keyframes
+        self._kf_imu_buf: List[ImuPoint] = []
+        self.bg = np.zeros(3)
+        self.ba = np.zeros(3)
+        self.kf_velocities: dict = {}
+        self.v_cur: Optional[np.ndarray] = None  # body velocity (world)
+        self._scale_stable_count = 0  # consecutive converged refinements
+        self._n_scale_refines = 0
+        # samples beyond an interval's 4 * _pre_cap rows, which the JAX
+        # System drops without a word (`_finish_kf_preint`, :2250)
+        self.dropped_imu_samples = 0
 
     # ---------------------------------------------------------------- atlas
 
@@ -434,14 +570,15 @@ class System:
     def track_monocular(self, im: np.ndarray, timestamp: float,
                         imu_measurements: Sequence = ()) -> np.ndarray:
         """Per-frame entry point; returns the 4x4 T_cw (camera from world).
-        Monocular mode reads no IMU samples."""
-        del imu_measurements
+        IMU_MONOCULAR takes the IMU samples in (t_prev, timestamp]; the
+        visual modes ignore them."""
         t0 = _time.perf_counter()
+        self._buffer_imu(imu_measurements)
         feats = self._extract_undistorted(self._preprocess(im))
         if self.state == TrackingState.NOT_INITIALIZED:
             self._try_initialize(feats, timestamp)
         elif self.state == TrackingState.OK:
-            self._track(feats, timestamp)
+            self._track(feats, timestamp, imu=imu_measurements)
         else:
             self._relocalize(feats, timestamp)
         return self._end_frame(feats, timestamp, t0)
@@ -452,15 +589,16 @@ class System:
         """Stereo per-frame entry point; returns the 4x4 T_cw. Landmarks
         are spawned at metric depth from rectified scanline matches or
         general two-view triangulation, so no two-view initialization is
-        needed."""
-        del imu_measurements
+        needed. IMU_STEREO takes the IMU samples in (t_prev, timestamp]."""
         t0 = _time.perf_counter()
+        self._buffer_imu(imu_measurements)
         img_l = self._preprocess(im_left)
         img_r = self._preprocess(im_right)
         feats = self._extract_undistorted(img_l)
         feats_r = (self._extract(img_r) if self._stereo_right_raw
                    else self._extract_undistorted(img_r))
-        self._step_metric(feats, self._stereo_obs(feats, feats_r), timestamp)
+        self._step_metric(feats, self._stereo_obs(feats, feats_r), timestamp,
+                          imu_measurements)
         return self._end_frame(feats, timestamp, t0)
 
     def track_rgbd(self, im: np.ndarray, depthmap: np.ndarray,
@@ -468,9 +606,10 @@ class System:
                    imu_measurements: Sequence = ()) -> np.ndarray:
         """RGB-D per-frame entry point; returns the 4x4 T_cw. Depth is
         sampled at each raw keypoint and backprojected through the
-        undistorted pixel; the rest is the stereo path's."""
-        del imu_measurements
+        undistorted pixel; the rest is the stereo path's. IMU_RGBD takes
+        the IMU samples in (t_prev, timestamp]."""
         t0 = _time.perf_counter()
+        self._buffer_imu(imu_measurements)
         f_raw = self._extract(self._preprocess(im))
         feats = dataclasses.replace(f_raw, uv=undistort(self.cam, f_raw.uv))
         cam = self.cam
@@ -478,16 +617,22 @@ class System:
             f_raw.uv, feats.uv, feats.mask, self._tensor(depthmap), cam.fx,
             cam.fy, cam.cx, cam.cy,
             max_depth=float(self.settings.th_far_points or 40.0))
-        self._step_metric(feats, sm, timestamp)
+        self._step_metric(feats, sm, timestamp, imu_measurements)
         return self._end_frame(feats, timestamp, t0)
 
-    def _step_metric(self, feats, sm, timestamp: float):
+    def _step_metric(self, feats, sm, timestamp: float, imu=()):
         if self.state == TrackingState.NOT_INITIALIZED:
             self._initialize_stereo(feats, sm, timestamp)
         elif self.state == TrackingState.OK:
-            self._track(feats, timestamp, stereo=sm)
+            self._track(feats, timestamp, stereo=sm, imu=imu)
         else:
             self._relocalize(feats, timestamp)
+
+    def _buffer_imu(self, imu_measurements):
+        """The inertial sensors keep every sample until its keyframe
+        interval is preintegrated."""
+        if self.sensor in IMU_MODES:
+            self._kf_imu_buf.extend(imu_measurements)
 
     def _end_frame(self, feats, timestamp: float, t0: float) -> np.ndarray:
         """The per-frame bookkeeping every entry point ends with."""
@@ -500,6 +645,15 @@ class System:
             "t": timestamp, "state": int(self.state),
             "ms": (_time.perf_counter() - t0) * 1e3})
         return self.Tcw.copy()
+
+    def is_imu_initialized(self) -> bool:
+        return self.imu_initialized
+
+    def get_inertial_ba1(self) -> bool:
+        return self.inertial_ba1
+
+    def get_inertial_ba2(self) -> bool:
+        return self.inertial_ba2
 
     def get_map_pcl(self) -> np.ndarray:
         """Map-point snapshot (`GetMapPCL`)."""
@@ -639,6 +793,7 @@ class System:
         # both initializer keyframes get their BoW rows (slots 0 and 1)
         self._add_bow_row(0, f0)
         self._add_bow_row(1, feats)
+        self._start_kf_preint()
 
     def _initialize_stereo(self, feats, sm, timestamp: float):
         """One-frame metric initialization: at least 80 features with a
@@ -672,8 +827,12 @@ class System:
             return self.velocity @ self.Tcw
         return self.Tcw
 
-    def _track(self, feats, timestamp: float, stereo=None):
-        T_pred = self._predict_pose()
+    def _track(self, feats, timestamp: float, stereo=None, imu=()):
+        # IMU-propagated prediction once the IMU is initialized (the
+        # reference's PredictStateIMU), constant velocity otherwise
+        T_pred = self._predict_pose_imu(list(imu), timestamp)
+        if T_pred is None:
+            T_pred = self._predict_pose()
         cam = self.cam
         # one device program and one fetch of the (16,) summary
         tm, res, obs_clean, summary = trk.track_frame(
@@ -691,26 +850,52 @@ class System:
         self.map = self.map._replace(
             lm_visible=self.map.lm_visible + tm.lm_visible_inc,
             lm_found=self.map.lm_found + tm.lm_found_inc)
+        T_prev = self.Tcw
         T_new = self._pose44(s[:9].reshape(3, 3), s[9:12])
         if self.last_Tcw is not None:
             self.velocity = T_new @ np.linalg.inv(self.last_Tcw)
         self.last_Tcw = T_new
         self.Tcw = T_new
+        # the body velocity for the IMU prediction: the difference of the
+        # body centres (no propagation drift accumulates)
+        if self.imu_initialized and self.last_frame_time is not None:
+            dt = timestamp - self.last_frame_time
+            if dt > 1e-6:
+                self.v_cur = (self._body_center(T_new)
+                              - self._body_center(T_prev)) / dt
         self.frames_since_kf += 1
         if self._need_keyframe(n_inl, n_kf_now):
-            self._insert_keyframe_fused(feats, obs_clean, timestamp, n_inl,
-                                        stereo)
+            if self.sensor in IMU_MODES:
+                self._insert_keyframe_inertial(feats, obs_clean, timestamp,
+                                               n_inl, stereo)
+            else:
+                self._insert_keyframe_fused(feats, obs_clean, timestamp,
+                                            n_inl, stereo)
 
     def _need_keyframe(self, n_inl: int, n_kf: int = -1) -> bool:
-        """The keyframe cadence of every ported sensor (the JAX System gives
-        only IMU_MONOCULAR a denser one): a keyframe every max(fps // 2, 5)
-        frames, or earlier (after KF_MIN_GAP frames) when the inliers drop
-        under 75% of the last keyframe's or under 60."""
+        """The keyframe cadence: a keyframe every max(fps // 2, 5) frames,
+        or earlier (after KF_MIN_GAP frames) when the inliers drop under 75%
+        of the last keyframe's or under 60. IMU_MONOCULAR also inserts
+        every max(fps // 3, 3) frames once the camera has moved at least
+        0.5% of the scene depth since the last keyframe (the VI initializer
+        needs keyframes to fill its windows; the parallax gate keeps their
+        triangulations conditioned)."""
         if n_kf < 0:
             n_kf = int(self.map.n_kf)
         if n_kf >= self.map_cfg.max_kf - 1:
             return False
         sparse_gap = max(int(self.cam.fps) // 2, 5)
+        if self.sensor == Sensor.IMU_MONOCULAR:
+            dense_gap = max(int(self.cam.fps) // 3, 3)
+            if self.frames_since_kf >= dense_gap:
+                base = None
+                if (self._last_kf_center is not None
+                        and self._scene_depth is not None):
+                    c = -self.Tcw[:3, :3].T @ self.Tcw[:3, 3]
+                    base = float(np.linalg.norm(c - self._last_kf_center))
+                if (base is None
+                        or base >= 0.005 * max(self._scene_depth, 1e-3)):
+                    return True
         if self.frames_since_kf >= sparse_gap:
             return True
         if self.frames_since_kf < self.KF_MIN_GAP:
@@ -762,6 +947,65 @@ class System:
             self._frame_ref_cache = (timestamp, self.Tcw.copy(),
                                      float(self.scale_applied))
         self._last_kf_center = -self.Tcw[:3, :3].T @ self.Tcw[:3, 3]
+
+    def _insert_keyframe_inertial(self, feats, obs_clean, timestamp: float,
+                                  n_inl: int, stereo=None):
+        """The inertial sensors' keyframe insertion, in the order of the
+        JAX staged `_insert_keyframe` (:1580-1696): `insert_and_fuse`
+        (with the rig sensors' stereo landmarks) and one summary fetch, the
+        BoW row, the interval's preintegration, a joint visual-inertial
+        window BA once the IMU is initialized (else the visual
+        `window_ba`), the landmark culling, compaction, then the
+        inertial schedule (VI initialization; full inertial BA at
+        FULL_VIBA_AT intervals; scale refinement) and loop closing. The
+        frame's pose becomes the keyframe's final one, except after a map
+        merge, which has moved the live pose into the merged world."""
+        cam = self.cam
+        m, new_id = insert_and_fuse(
+            self.map, self._tensor(self.Tcw[:3, :3]),
+            self._tensor(self.Tcw[:3, 3]), timestamp, feats.uv, feats.level,
+            feats.bits, feats.mask, obs_clean.to(torch.int32), cam.fx,
+            cam.fy, cam.cx, cam.cy, cam.width, cam.height,
+            stereo=None if stereo is None else (stereo.X_cam, stereo.valid))
+        self.map = m
+        s = keyframe_summary(m, new_id).cpu().numpy()
+        n_kf_after, n_lm = int(s[12]), int(s[13])
+        new_id = n_kf_after - 1
+        self._add_bow_row(new_id, feats)
+        self.kf_times.append(timestamp)
+        self._finish_kf_preint(timestamp)
+        if not (self.imu_initialized and self._vi_local_ba_step()):
+            self.map = window_ba(self.map, new_id, cam.fx, cam.fy, cam.cx,
+                                 cam.cy, self.LOCAL_WINDOW,
+                                 self.LOCAL_FIXED_RING)
+        self.map = trk.cull_landmarks(self.map)
+        self.frames_since_kf = 0
+        self.last_kf_inliers = max(n_inl, 1)
+        kf_remap = self._maybe_compact(n_kf=n_kf_after, n_lm=n_lm)
+        if kf_remap is not None:
+            new_id = int(kf_remap[new_id])
+        n_int = len(self.kf_preints)
+        if not self.imu_initialized:
+            if n_int >= self.VI_INIT_KFS - 1:
+                self._run_vi_init()
+        elif n_int in self.FULL_VIBA_AT:
+            # joint VI BA over the recent map (FullInertialBA): reconciles
+            # the map's geometry with the IMU where the inertial-only
+            # refinement can only rescale rigidly
+            self._run_inertial_gba(max_kfs=48, n_iters=8, opt_gravity=True)
+        elif ((self._scale_stable_count < 2 and self._n_scale_refines < 12
+               and n_int % 2 == 0) or n_int in self.SCALE_REFINE_AT):
+            # refine every other keyframe until two consecutive estimates
+            # agree, then on the sparse schedule
+            self._refine_scale()
+        merged = self.n_maps_merged
+        if self.settings.loop_closing:
+            self._try_close_loop(new_id, feats)
+        if self.n_maps_merged == merged and 0 <= new_id < int(self.map.n_kf):
+            self.Tcw = self._pose44(self.map.kf_R[new_id].cpu().numpy(),
+                                    self.map.kf_t[new_id].cpu().numpy())
+        self._last_kf_center = -self.Tcw[:3, :3].T @ self.Tcw[:3, 3]
+        self._mark_frame_ref_dirty()
 
     # ------------------------------------------------------- map maintenance
 
@@ -821,9 +1065,10 @@ class System:
     def _remap_host_kf_state(self, remap: np.ndarray, old_n_kf: int):
         """Rewrite the host bookkeeping after a keyframe compaction: the
         keyframe times, the BoW rows (which follow their keyframes' slots;
-        document counts recounted), the last loop keyframe and the loop
-        consistency groups (the JAX version's velocities, preintegrations
-        and listeners belong to parts not ported)."""
+        document counts recounted), the keyframe velocities, the last loop
+        keyframe, the loop consistency groups and the inter-keyframe
+        preintegrations (the JAX version's listeners belong to a part not
+        ported)."""
         kept = [k for k in range(old_n_kf) if remap[k] >= 0]
         self.kf_times = [self.kf_times[k] for k in kept
                          if k < len(self.kf_times)]
@@ -831,6 +1076,9 @@ class System:
             vocab_mod.empty_database(self.map_cfg.max_kf,
                                      self.vocab.n_words, self.device),
             self.bow_db, kept, remap[kept])
+        self.kf_velocities = {
+            int(remap[k]): v for k, v in self.kf_velocities.items()
+            if 0 <= int(k) < old_n_kf and remap[int(k)] >= 0}
         if 0 <= self.last_loop_kf < old_n_kf:
             r = int(remap[self.last_loop_kf])
             self.last_loop_kf = r if r >= 0 else -10**9
@@ -839,6 +1087,26 @@ class System:
                 ({int(remap[k]) for k in g
                   if 0 <= k < old_n_kf and remap[k] >= 0}, c)
                 for g, c in self._loop_consistency) if g2]
+        # preintegrations: kf_preints[i] ends at old keyframe old_n_kf - n +
+        # i; the intervals across a culled keyframe merge (the reference's
+        # MergePrevious). A gap before preintegration began truncates the
+        # list's head; its tail stays aligned with the newest keyframes,
+        # which is all the VI windows read.
+        n_pre = len(self.kf_preints)
+        if n_pre:
+            end2pre = {old_n_kf - n_pre + i: p
+                       for i, p in enumerate(self.kf_preints)}
+            new_pre = []
+            for a, b in zip(kept[:-1], kept[1:]):
+                segs = [end2pre.get(e) for e in range(a + 1, b + 1)]
+                if any(sg is None for sg in segs):
+                    new_pre = []
+                    continue
+                p = segs[0]
+                for sg in segs[1:]:
+                    p = pre_mod.merge(p, sg)
+                new_pre.append(p)
+            self.kf_preints = new_pre
 
     # ------------------------------------------------------------ loop close
 
@@ -900,7 +1168,7 @@ class System:
         consistent = self._update_loop_consistency(
             np.asarray(keep_scores, np.float32),
             np.asarray(keep_ids, np.int32), covis)
-        fix_scale = self._metric_scale
+        fix_scale = self.imu_initialized or self._metric_scale
         cam = self.cam
         for cand_kf in consistent:
             cand = closing_mod.detect_and_verify(
@@ -917,7 +1185,13 @@ class System:
                 self.map, _, _ = trk.fuse_map_points(
                     self.map, seam_kf, cam.fx, cam.fy, cam.cx, cam.cy,
                     cam.width, cam.height)
-            self._run_global_ba(n_iters=8)
+            # the global polish: a full inertial BA once the IMU is
+            # initialized (a visual-only one would fight the gravity and
+            # scale states)
+            if self.imu_initialized:
+                self._run_inertial_gba()
+            else:
+                self._run_global_ba(n_iters=8)
             self.Tcw = self._pose44(self.map.kf_R[new_kf].cpu().numpy(),
                                     self.map.kf_t[new_kf].cpu().numpy())
             self.last_Tcw = self.Tcw.copy()
@@ -978,7 +1252,8 @@ class System:
                 continue
             cand = merging_mod.detect_cross_map(
                 self.map, new_kf, old_map, int(ids[0]),
-                self._sim3_generator(77), fix_scale=self._metric_scale)
+                self._sim3_generator(77),
+                fix_scale=self.imu_initialized or self._metric_scale)
             if cand is None:
                 continue
             cand = merging_mod.refine_weld_pnp(self.map, old_map, cand,
@@ -1006,12 +1281,23 @@ class System:
             del self.atlas.bow_dbs[prev_active]
             self.atlas.active = mi if mi < prev_active else mi - 1
             self.kf_times = self._map_kf_times()
+            # the active map's keyframes moved to slots from first_slot on;
+            # the preintegrations between the kept ones stay
+            shift = first_slot - (int(kept_kf[0]) if len(kept_kf) else 0)
+            kept_set = set(int(x) for x in kept_kf)
+            self.kf_velocities = {
+                int(k) + shift: v for k, v in self.kf_velocities.items()
+                if int(k) in kept_set}
+            keep_int = max(len(kept_kf) - 1, 0)
+            self.kf_preints = self.kf_preints[-keep_int:] if keep_int else []
             # the live pose into the merged world
             R_cw2 = self.Tcw[:3, :3] @ R_inv.T
             t_cw2 = s_inv * self.Tcw[:3, 3] - R_cw2 @ t_inv
             self.Tcw = self._pose44(R_cw2, t_cw2)
             self.last_Tcw = self.Tcw.copy()
             self.velocity = None
+            if self.v_cur is not None:
+                self.v_cur = s_inv * (R_inv @ np.asarray(self.v_cur))
             self.n_maps_merged += 1
             self.last_loop_kf = int(merged.n_kf) - 1
             return True
@@ -1121,9 +1407,15 @@ class System:
                 mi -= 1
         self.atlas.active = mi
         self.kf_times = self._map_kf_times()
+        # the inertial chain is broken across the gap: preintegration
+        # restarts
+        self.kf_preints = []
+        self.kf_velocities = {}
+        self._kf_imu_buf = []
         self._loop_consistency = []
         self._map_protected = True  # resumed history is never discarded
         self.velocity = None
+        self.v_cur = None
         self.state = TrackingState.OK
         self.frames_lost = 0
         self.frames_since_kf = 0
@@ -1140,5 +1432,382 @@ class System:
         self.frames_since_kf = 0
         self.frames_lost = 0
         self.kf_times = []
+        self.kf_preints = []
+        self.kf_velocities = {}
+        self._kf_imu_buf = []
+        self.v_cur = None
         self.last_loop_kf = -10**9
         self._loop_consistency = []
+
+    # ------------------------------------------------------------------ IMU
+
+    def _body_center(self, Tcw: np.ndarray) -> np.ndarray:
+        """World position of the IMU body for a camera pose T_cw."""
+        R_bc, t_bc = self._T_bc[:3, :3], self._T_bc[:3, 3]
+        R_bw = R_bc @ Tcw[:3, :3]
+        t_bw = R_bc @ Tcw[:3, 3] + t_bc
+        return -R_bw.T @ t_bw
+
+    @staticmethod
+    def _hat_np(v):
+        return np.array([[0, -v[2], v[1]], [v[2], 0, -v[0]],
+                         [-v[1], v[0], 0]], float)
+
+    @staticmethod
+    def _so3_exp_np(phi: np.ndarray) -> np.ndarray:
+        th = float(np.linalg.norm(phi))
+        if th < 1e-12:
+            return np.eye(3) + System._hat_np(phi)
+        A = System._hat_np(phi / th)
+        return np.eye(3) + np.sin(th) * A + (1.0 - np.cos(th)) * (A @ A)
+
+    def _predict_pose_imu(self, imu_points, t_img: float
+                          ) -> Optional[np.ndarray]:
+        """Integrate the frame's gyro/accel samples forward from the last
+        frame to predict the camera pose (the reference's PredictStateIMU),
+        on the host in float64, as the JAX System does. None before the
+        IMU is initialized, without a velocity or without samples."""
+        if not self.imu_initialized or self.v_cur is None or not imu_points:
+            return None
+        t_prev = self.last_frame_time
+        if t_prev is None:
+            return None
+        R_bc, t_bc = self._T_bc[:3, :3], self._T_bc[:3, 3]
+        R_cw = self.Tcw[:3, :3].astype(float)
+        t_cw = self.Tcw[:3, 3].astype(float)
+        R_bw = R_bc @ R_cw
+        t_bw = R_bc @ t_cw + t_bc
+        R_wb = R_bw.T
+        p_wb = -R_bw.T @ t_bw
+        v = np.asarray(self.v_cur, float).copy()
+        g = np.array(pre_mod.GRAVITY)
+        t0 = t_prev
+        for pt in imu_points:
+            if pt.t <= t_prev or pt.t > t_img + 1e-9:
+                continue
+            dt = min(pt.t, t_img) - t0
+            if dt <= 0:
+                continue
+            w = pt.gyro - self.bg
+            a = pt.acc - self.ba
+            a_w = R_wb @ a + g
+            p_wb = p_wb + v * dt + 0.5 * a_w * dt * dt
+            v = v + a_w * dt
+            R_wb = R_wb @ self._so3_exp_np(w * dt)
+            t0 = pt.t
+        R_bw = R_wb.T
+        t_bw = -R_bw @ p_wb
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = R_bc.T @ R_bw
+        T[:3, 3] = R_bc.T @ (t_bw - t_bc)
+        return T
+
+    def _start_kf_preint(self):
+        self._kf_imu_buf = []
+
+    def _finish_kf_preint(self, timestamp: float):
+        """Preintegrate the buffered samples of the interval ending at this
+        keyframe, (t_prev_kf, timestamp]. A virtual sample at the keyframe's
+        time closes it (linear interpolation against the next sample, or a
+        zero-order hold when it has not arrived), as the reference's
+        PreintegrateIMU does: dropping that tail lost ~g·dt_sample of
+        velocity per interval in the JAX package.
+
+        The JAX System integrates a batch of 4 * _pre_cap rows and drops
+        any sample past it silently; the port keeps that result and counts
+        the dropped samples in `dropped_imu_samples`. It integrates only
+        the rows that hold samples: the masked rows of the JAX batch leave
+        the state unchanged, so the result is the same."""
+        buf = [p for p in self._kf_imu_buf if p.t <= timestamp]
+        rest = [p for p in self._kf_imu_buf if p.t > timestamp]
+        if buf and buf[-1].t < timestamp - 1e-9:
+            a = buf[-1]
+            if rest:
+                b = rest[0]
+                w = (timestamp - a.t) / max(b.t - a.t, 1e-9)
+                gy = (1.0 - w) * a.gyro + w * b.gyro
+                ac = (1.0 - w) * a.acc + w * b.acc
+            else:
+                gy, ac = a.gyro, a.acc
+            buf = buf + [ImuPoint(ac, gy, timestamp)]
+        self._kf_imu_buf = rest
+        cap = self._pre_cap * 4
+        self.dropped_imu_samples += max(len(buf) - cap, 0)
+        buf = buf[:cap]
+        n = len(buf)
+        gyro = np.zeros((n, 3), np.float32)
+        acc = np.zeros((n, 3), np.float32)
+        dts = np.zeros((n,), np.float32)
+        tprev = self.kf_times[-2] if len(self.kf_times) >= 2 else (
+            buf[0].t if buf else timestamp)
+        for i, p in enumerate(buf):
+            gyro[i] = p.gyro
+            acc[i] = p.acc
+            dts[i] = max(p.t - tprev, 1e-5)
+            tprev = p.t
+        self.kf_preints.append(pre_mod.preintegrate(
+            self._tensor(gyro), self._tensor(acc), self._tensor(dts),
+            torch.ones((n,), dtype=torch.bool, device=self.device),
+            self._tensor(self.bg), self._tensor(self.ba),
+            noise_gyro=self.settings.noise_gyro,
+            noise_acc=self.settings.noise_acc))
+
+    def _inertial_window(self, max_int: Optional[int] = None):
+        """The consecutive-keyframe window the stored preintegrations cover:
+        (kf_ids, stacked preintegrations, body R_wb, body p_wb) or None.
+        The length is bucketed as in the JAX System (48, 32, 24, 16, 12, 8
+        intervals): scale and gravity separate only over windows with
+        enough variation of the acceleration."""
+        n_kf = int(self.map.n_kf)
+        n_int = len(self.kf_preints)
+        if max_int is not None and n_int > max_int:
+            n_int = max_int
+        for b in (48, 32, 24, 16, 12, 8):
+            if n_int >= b:
+                n_int = b
+                break
+        k0 = n_kf - (n_int + 1)
+        if k0 < 0 or n_int < 2:
+            return None
+        kf_ids = np.arange(k0, n_kf)
+        R_cw = self.map.kf_R[k0:n_kf].cpu().numpy()
+        t_cw = self.map.kf_t[k0:n_kf].cpu().numpy()
+        R_bc = self._T_bc[:3, :3].astype(np.float32)
+        t_bc = self._T_bc[:3, 3].astype(np.float32)
+        # T_wb = T_wc ∘ T_cb
+        R_wc = np.swapaxes(R_cw, -1, -2)
+        p_wc = -np.einsum("kij,kj->ki", R_wc, t_cw)
+        R_wb = R_wc @ R_bc.T[None]
+        p_wb = p_wc - np.einsum("kij,jl,l->ki", R_wc, R_bc.T, t_bc)
+        return (kf_ids, pre_mod.stack(self.kf_preints[-n_int:]), R_wb,
+                p_wb)
+
+    def _velocity_guess(self, k: int, kR, kt) -> np.ndarray:
+        """Backward difference of the camera centres of keyframes k-1, k."""
+        k1 = max(k - 1, 0)
+        c2 = -kR[k].T @ kt[k]
+        c1 = -kR[k1].T @ kt[k1]
+        dt = max(self.kf_times[k] - self.kf_times[k1], 1e-3)
+        return (c2 - c1) / dt
+
+    def _vi_ba(self, window, fixed, pres, v0, **kw):
+        cam = self.cam
+        return vi_ba2(
+            self.map, torch.as_tensor(np.asarray(window), dtype=torch.int32,
+                                      device=self.device),
+            torch.as_tensor(np.asarray(fixed), device=self.device), pres,
+            self._tensor(np.stack(v0)), self._tensor(self.bg),
+            self._tensor(self.ba), cam.fx, cam.fy, cam.cx, cam.cy,
+            self._R_bc, self._t_bc, **kw)
+
+    def _refine_scale(self):
+        """Inertial-only re-estimation of the residual scale and gravity
+        over the recent window; applies a damped correction when the
+        window observes it."""
+        self._mark_frame_ref_dirty()
+        self._n_scale_refines += 1
+        win = self._inertial_window(self.SCALE_REFINE_MAX_INT)
+        if win is None:
+            return
+        kf_ids, pres, R_wb, p_wb = win
+        # gyro bias lightly anchored at the running estimate; accel bias
+        # re-anchored at zero (a running-estimate anchor let a corrupted
+        # ba mask the residual scale completely in the JAX package)
+        out = vii.vi_init(pres, self._tensor(R_wb), self._tensor(p_wb),
+                          prior_bg=1e4, prior_ba=1e10,
+                          bg_center=self._tensor(self.bg))
+        s = float(out.scale)
+        if not (0.2 < s < 5.0) or not np.isfinite(s):
+            self._scale_stable_count = 0
+            return
+        if abs(s - 1.0) < 0.02:
+            self._scale_stable_count += 1
+        else:
+            self._scale_stable_count = 0
+        # observability-weighted: confident windows apply (nearly) the full
+        # correction, noisy ones almost none; low-confidence ones skip
+        sigma = float(np.sqrt(max(float(out.scale_var), 0.0)))
+        gain = 1.0 / (1.0 + (sigma / 0.03) ** 2)
+        if gain < 0.25:
+            return
+        # a capped step per refinement: one large Sim3 mid-run disturbs
+        # tracking more than the scale error does
+        dlog = float(np.clip(gain * np.log(s), -0.1, 0.1))
+        s = float(np.exp(dlog))
+        thg = gain * lie.so3_log(out.R_wg).cpu().numpy()
+        nrm = float(np.linalg.norm(thg))
+        if nrm > 0.05:
+            thg = thg * (0.05 / nrm)
+        if abs(s - 1.0) < 0.01 and np.linalg.norm(thg) < 5e-3:
+            return
+        R_wg = lie.so3_exp(self._tensor(thg)).cpu().numpy()
+        self.map = apply_sim3_to_map(self.map, self._tensor(R_wg.T),
+                                     self._tensor(s))
+        self.Tcw = self._pose44(self.Tcw[:3, :3] @ R_wg, self.Tcw[:3, 3] * s)
+        self.last_Tcw = self.Tcw.copy()
+        self.velocity = None
+        self.bg = out.bg.cpu().numpy()
+        # self.ba is not updated: the refinement anchors ba at zero only to
+        # make the scale observable; the joint VI BA estimates ba
+        self.scale_applied *= s
+        # the scene depth is in map units: it rides every world Sim3
+        if self._scene_depth is not None:
+            self._scene_depth *= s
+        v_opt = out.v.cpu().numpy() @ R_wg
+        self.kf_velocities.update(
+            {int(k): v_opt[i] for i, k in enumerate(kf_ids)})
+
+    def _vi_local_ba_step(self) -> bool:
+        """Joint visual-inertial BA over the sliding keyframe window (the
+        reference's LocalInertialBA): reprojection and preintegration
+        factors, velocities and biases refined, gravity held, and the
+        VI_FIXED_RING most covisible older keyframes held fixed so that the
+        window cannot drift off the map."""
+        self._mark_frame_ref_dirty()
+        W = self.VI_LOCAL_WINDOW
+        n_kf = int(self.map.n_kf)
+        n_int = len(self.kf_preints)
+        if n_kf < W or n_int < W - 1:
+            return False
+        kf_ids = np.arange(n_kf - W, n_kf)
+        pres = pre_mod.stack(self.kf_preints[-(W - 1):])
+        kR = self.map.kf_R[:n_kf].cpu().numpy()
+        kt = self.map.kf_t[:n_kf].cpu().numpy()
+        v0 = []
+        for k in kf_ids:
+            v = self.kf_velocities.get(int(k))
+            if v is None:
+                v = self._velocity_guess(int(k), kR, kt)
+            v0.append(np.asarray(v, np.float32))
+        R_RING = self.VI_FIXED_RING
+        covis = ms.covisibility_matrix(self.map).cpu().numpy()
+        ring_w = covis[kf_ids].sum(0).astype(np.float64)
+        ring_w[kf_ids] = -1.0
+        ring_w[n_kf:] = -1.0
+        order = np.argsort(-ring_w)[:R_RING]
+        ring = [int(r) for r in order if ring_w[r] > 0]
+        ring += [int(kf_ids[0])] * (R_RING - len(ring))  # pad; deduped
+        window = np.concatenate([kf_ids, np.asarray(ring, np.int64)])
+        fixed = np.zeros(W + R_RING, bool)
+        fixed[0] = True
+        fixed[W:] = True
+        v0 += [np.zeros(3, np.float32)] * R_RING  # ring velocities unused
+        m2, v_opt, bg2, ba2, cost, _ = self._vi_ba(
+            window, fixed, pres, v0, opt_gravity=False, n_inertial=W - 1)
+        if not np.isfinite(float(cost)):
+            return False
+        self.map = m2
+        self.bg = bg2.cpu().numpy()
+        self.ba = ba2.cpu().numpy()
+        v_opt = v_opt.cpu().numpy()
+        self.kf_velocities.update(
+            {int(k): v_opt[i] for i, k in enumerate(kf_ids)})
+        self.v_cur = v_opt[W - 1]  # the last consecutive entry, not the ring
+        last = int(kf_ids[-1])
+        self.Tcw = self._pose44(self.map.kf_R[last].cpu().numpy(),
+                                self.map.kf_t[last].cpu().numpy())
+        self.last_Tcw = self.Tcw.copy()
+        return True
+
+    def _run_vi_init(self):
+        """VIBA1: inertial-only optimization with the visual poses fixed;
+        the map takes the recovered scale and gravity rotation; then VIBA2,
+        the joint visual-inertial BA over the window (FullInertialBA)."""
+        self._mark_frame_ref_dirty()
+        win = self._inertial_window()
+        if win is None:
+            return
+        kf_ids, pres, R_wb, p_wb = win
+        # stereo(-inertial) and RGB-D maps are metric already: log s = 0
+        fixed_scale = self.sensor in (Sensor.IMU_STEREO, Sensor.IMU_RGBD)
+        out = vii.vi_init(pres, self._tensor(R_wb), self._tensor(p_wb),
+                          fix_scale=fixed_scale)
+        s = float(out.scale)
+        if not (0.05 < s < 50.0) or not np.isfinite(s):
+            return
+        # observability gate (monocular): no upgrade on a window whose
+        # log-scale posterior std says the estimate is unreliable; with a
+        # fixed scale that variance is meaningless
+        if (not fixed_scale
+                and float(np.sqrt(max(float(out.scale_var), 0.0))) > 0.3):
+            return
+        R_wg = out.R_wg.cpu().numpy()
+        # gravity to world -z, the map to metric units
+        self.map = apply_sim3_to_map(self.map, self._tensor(R_wg.T),
+                                     self._tensor(s))
+        self.Tcw = self._pose44(self.Tcw[:3, :3] @ R_wg, self.Tcw[:3, 3] * s)
+        self.last_Tcw = self.Tcw.copy()
+        self.velocity = None
+        self.bg = out.bg.cpu().numpy()
+        self.ba = out.ba.cpu().numpy()
+        self.scale_applied = s
+        if self._scene_depth is not None:
+            self._scene_depth *= s  # depth rides the world Sim3
+        self.imu_initialized = True
+        self.inertial_ba1 = True
+        self._scale_stable_count = 0  # start the convergence-driven refine
+
+        # VIBA2 over the init window; the velocities rotate with the
+        # gravity alignment (already metric)
+        v_new = out.v.cpu().numpy() @ R_wg
+        fixed = np.zeros(len(kf_ids), bool)
+        fixed[0] = True
+        m2, v_opt, bg2, ba2, cost, thg = self._vi_ba(kf_ids, fixed, pres,
+                                                     list(v_new))
+        if np.isfinite(float(cost)):
+            self.map = m2
+            self.bg = bg2.cpu().numpy()
+            self.ba = ba2.cpu().numpy()
+            v_opt = v_opt.cpu().numpy()
+            # VIBA2 refines the gravity direction too: rotate the world so
+            # that gravity is -z again
+            thg = thg.cpu().numpy()
+            if np.linalg.norm(thg) > 1e-8:
+                R_g = lie.so3_exp(self._tensor(
+                    [thg[0], thg[1], 0.0])).cpu().numpy()
+                self.map = apply_sim3_to_map(self.map, self._tensor(R_g.T),
+                                             self._tensor(1.0))
+                v_opt = v_opt @ R_g
+            self.kf_velocities = {int(k): v_opt[i]
+                                  for i, k in enumerate(kf_ids)}
+            self.v_cur = v_opt[-1]
+            last = int(kf_ids[-1])
+            self.Tcw = self._pose44(self.map.kf_R[last].cpu().numpy(),
+                                    self.map.kf_t[last].cpu().numpy())
+            self.last_Tcw = self.Tcw.copy()
+            self.velocity = None
+        self.inertial_ba2 = True
+
+    def _run_inertial_gba(self, max_kfs: int = 64, n_iters: int = 10,
+                          opt_gravity: bool = False):
+        """Full inertial BA over the trailing consecutive keyframes that
+        the stored preintegrations cover (at most `max_kfs`), keyframe 0 of
+        the window fixed: after a loop correction (the reference's
+        RunGlobalBundleAdjustment → FullInertialBA) and at FULL_VIBA_AT.
+        Velocities restart from backward differences of the (corrected)
+        keyframe poses."""
+        self._mark_frame_ref_dirty()
+        n_kf = int(self.map.n_kf)
+        W = min(len(self.kf_preints) + 1, n_kf, max_kfs)
+        if W < 3:
+            return
+        kf_ids = np.arange(n_kf - W, n_kf)
+        pres = pre_mod.stack(self.kf_preints[-(W - 1):])
+        kR = self.map.kf_R[:n_kf].cpu().numpy()
+        kt = self.map.kf_t[:n_kf].cpu().numpy()
+        v0 = [self._velocity_guess(int(k), kR, kt).astype(np.float32)
+              for k in kf_ids]
+        fixed = np.zeros(W, bool)
+        fixed[0] = True
+        m2, v_opt, bg2, ba2, cost, _ = self._vi_ba(
+            kf_ids, fixed, pres, v0, opt_gravity=opt_gravity,
+            n_iters=n_iters)
+        if not np.isfinite(float(cost)):
+            return
+        self.map = m2
+        self.bg = bg2.cpu().numpy()
+        self.ba = ba2.cpu().numpy()
+        v_opt = v_opt.cpu().numpy()
+        self.kf_velocities.update(
+            {int(k): v_opt[i] for i, k in enumerate(kf_ids)})
+        self.v_cur = v_opt[-1]

@@ -13,18 +13,23 @@
               `config/Monocular/EuRoC.yaml`, then four lost-and-recovered
               scenarios; `run_reloc`) or synth_loopy (phase 9: the
               leave-and-return room clip with loop closing on and off;
-              `run_loopy`). The three options below apply to euroc_mono
-              only.
+              `run_loopy`) or euroc_vi (phase 10: `track_monocular` in
+              IMU_MONOCULAR mode on `config/Monocular-Inertial/EuRoC.yaml`
+              as published, 120 frames of the hard room at 600x350 with a
+              200 Hz IMU; `run_euroc_vi`) or vi_rigs (phase 10b: the
+              IMU_STEREO and IMU_RGBD clips of the JAX inertial e2e tests;
+              `run_vi_rigs`). The three options below apply to euroc_mono
+              only, but for --cpu-inputs, which vi_rigs takes too.
 
 --profile     (CUDA) trace frames 16-24, then the first keyframe insertion
               from frame 25 on, with torch.profiler; print for each the wall
               and device time, kernel launches, copy and synchronize calls,
               and the operators with the most device time.
---cpu-inputs  extract each frame's features and draw the initializer's
+--cpu-inputs  extract each image's features and draw the initializer's
               samples on the CPU, then move them to the device: the run on
               the device then starts from the same inputs as a `--device cpu`
               run, so the two differ only downstream of extraction and
-              sampling.
+              sampling (`tools/vi_rig_diff.py` goes further for vi_rigs).
 --init-offsets  run the System once for each K, with K added to the seed
               of every initialization attempt (the System seeds attempt
               n with n): how the result varies with the initializer's draw.
@@ -660,6 +665,290 @@ def run_corridor_loop(device) -> Tuple[dict, sysm.System]:
                             and torch.isfinite(m.lm_X).all())), slam
 
 
+# ------------------------------------------ mono-inertial (phase 10)
+
+EUROC_VI = "config/Monocular-Inertial/EuRoC.yaml"
+VI_FRAMES, VI_SEED, VI_TRAJ_SCALE = 120, 0, 1.5  # 6 s at the file's 20 fps
+# the JAX evaluation's EuRoC-grade IMU (`runtime/bench_eval.py:53-59`: the
+# published noise densities times sqrt(200), and the bias walks), the gyro
+# bias of tests/test_e2e_vi.py:33, and the IMU noise seed 5
+VI_IMU_KW = dict(rate=200.0, gyro_noise=1.7e-4 * np.sqrt(200.0),
+                 acc_noise=2.0e-3 * np.sqrt(200.0), gyro_walk=1.9e-5,
+                 acc_walk=3.0e-3)
+VI_TRUE_BG = np.array([0.01, -0.008, 0.012])
+VI_IMU_SEED = 5
+# tests/test_e2e_vi.py's bars (:55, :76-88), on the frames after the VI
+# initialization: the gyro bias (inf-norm), tracked frames, the Umeyama
+# scale and the unaligned length ratio
+VI_BG_TOL, VI_MIN_POST, VI_SCALE_TOL, VI_LENGTH_TOL = 2e-2, 20, 0.10, 0.35
+
+
+class BodyTrajectory:
+    """The IMU body's trajectory of a camera trajectory: T_wb = T_wc T_cb,
+    with T_cb the inverse of `T_b_c` (the settings' `IMU.T_b_c1`, body from
+    camera). Has the `rotation(t)` and `position(t)` that
+    `synthetic.make_imu` reads."""
+
+    def __init__(self, cam_traj, T_b_c):
+        self.cam_traj = cam_traj
+        T = np.asarray(T_b_c, np.float64)
+        self.R_cb = T[:3, :3].T
+        self.t_cb = -T[:3, :3].T @ T[:3, 3]
+
+    def rotation(self, t):
+        return self.cam_traj.rotation(t) @ self.R_cb
+
+    def position(self, t):
+        return self.cam_traj.position(t) + self.cam_traj.rotation(t) @ \
+            self.t_cb
+
+
+def render_euroc_vi():
+    """The hard room clip (the JAX evaluation's `synth_hard_vi` rows,
+    `runtime/bench_eval.py:253-322`: `render_room_sequence`'s planes,
+    trajectory and photometry, seed 0, trajectory scale 1.5) rendered
+    directly at 600x350 through the radtan camera of
+    `config/Monocular-Inertial/EuRoC.yaml` after its resize (the rays come
+    from the camera model the System undistorts with), 120 frames at the
+    file's 20 fps, and the IMU of the camera's body under the file's
+    `IMU.T_b_c1` at 200 Hz. Returns (images, R_gt, t_gt, timestamps,
+    (imu_t, gyro, acc))."""
+    st = settings_mod.load_settings(str(REPO / EUROC_VI))
+    images, R_gt, t_gt, ts = synthetic.render_room_sequence_kb8(
+        n_frames=VI_FRAMES, cam=st.camera, fps=st.fps, seed=VI_SEED,
+        traj_scale=VI_TRAJ_SCALE)
+    cam_traj = synthetic.default_trajectory(seed=VI_SEED + 3,
+                                            scale=VI_TRAJ_SCALE)
+    imu = synthetic.make_imu(BodyTrajectory(cam_traj, st.T_b_c1), -0.02,
+                             float(ts[-1]) + 0.01, gyro_bias=VI_TRUE_BG,
+                             seed=VI_IMU_SEED, **VI_IMU_KW)
+    return images, R_gt, t_gt, ts, imu
+
+
+def imu_points(imu, t_prev: float, t_k: float) -> list:
+    """The samples of `imu` = (t, gyro, acc) in (t_prev, t_k] as the
+    port's `ImuPoint`s (the JAX System reads the same three fields)."""
+    imu_t, gyro, acc = imu
+    sel = np.where((imu_t > t_prev) & (imu_t <= t_k))[0]
+    return [sysm.ImuPoint(acc[i], gyro[i], imu_t[i]) for i in sel]
+
+
+def vi_metrics(slam, R_gt, t_gt, true_bg) -> dict:
+    """The measures of tests/test_e2e_vi.py on `get_frame_trajectory()`
+    (the JAX or the port's System): the gyro bias error, and over the
+    frames tracked after the VI initialization the Umeyama scale and the
+    unaligned length ratio; also the Sim3-aligned ATE over every tracked
+    frame and the length error over the last third (the evaluation's
+    `scale_err_end_pct`, `runtime/bench_eval.py:383-393`)."""
+    traj = slam.get_frame_trajectory()
+    ok = [k for k, r in enumerate(slam.tracking_log) if r["state"] == 1]
+    est = np.array([-traj[k][1][:3, :3].T @ traj[k][1][:3, 3] for k in ok])
+    gt = np.array([-R_gt[k].T @ t_gt[k] for k in ok])
+    out = dict(imu_initialized=bool(slam.is_imu_initialized()),
+               inertial_ba1=bool(slam.get_inertial_ba1()),
+               inertial_ba2=bool(slam.get_inertial_ba2()),
+               n_tracked=len(ok), n_kf=int(slam.map.n_kf),
+               bg=[float(x) for x in np.asarray(slam.bg)],
+               bg_err=float(np.abs(np.asarray(slam.bg) - true_bg).max()),
+               scale_applied=float(slam.scale_applied))
+    if len(ok) >= 3:
+        out["ate_m"] = synthetic.ate_rmse(est, gt)
+        third = len(est) // 3
+        if third >= 5:
+            le = np.linalg.norm(np.diff(est[-third:], axis=0), axis=1).sum()
+            lg = np.linalg.norm(np.diff(gt[-third:], axis=0), axis=1).sum()
+            out["scale_err_end"] = float(abs(le - lg) / lg)
+    kf_times = slam.kf_times
+    t_init = kf_times[min(len(kf_times) - 1, slam.VI_INIT_KFS)] \
+        if kf_times else np.inf
+    post = [i for i, k in enumerate(ok) if traj[k][0] >= t_init]
+    out["n_post_init"] = len(post)
+    if len(post) >= 3:
+        e, g = est[post], gt[post]
+        out["umeyama_scale"] = synthetic.umeyama_scale(e, g)
+        le = np.linalg.norm(np.diff(e, axis=0), axis=1).sum()
+        lg = np.linalg.norm(np.diff(g, axis=0), axis=1).sum()
+        out["length_ratio"] = float(le / lg)
+    return out
+
+
+def vi_failures(r: dict) -> list:
+    """The phase 10 bars that a result of `vi_metrics` misses."""
+    failed = []
+    if not (r["imu_initialized"] and r["inertial_ba1"]):
+        failed.append("the IMU did not initialize")
+    if r["state"] != "OK":
+        failed.append(f"state {r['state']} at the end")
+    if not r["bg_err"] < VI_BG_TOL:
+        failed.append(f"gyro bias error {r['bg_err']}")
+    if not r["n_post_init"] > VI_MIN_POST:
+        failed.append(f"{r['n_post_init']} frames after the VI init")
+    if not abs(r.get("umeyama_scale", np.inf) - 1.0) < VI_SCALE_TOL:
+        failed.append(f"Umeyama scale {r.get('umeyama_scale')}")
+    if not abs(r.get("length_ratio", np.inf) - 1.0) < VI_LENGTH_TOL:
+        failed.append(f"length ratio {r.get('length_ratio')}")
+    return failed
+
+
+def make_vi_system(device) -> sysm.System:
+    """`config/Monocular-Inertial/EuRoC.yaml` as published, IMU_MONOCULAR."""
+    return sysm.System(None, str(REPO / EUROC_VI),
+                       sysm.Sensor.IMU_MONOCULAR, device=device)
+
+
+def run_euroc_vi(device, frames=None):
+    """Phase 10's clip through `track_monocular` with its IMU samples.
+    Returns (result, System): the `vi_metrics`, the frame of the VI
+    initialization, keyframes, ms per frame, and the preintegration
+    samples that the System dropped past its per-interval cap."""
+    device = torch.device(device)
+    images, R_gt, t_gt, ts, imu = frames or render_euroc_vi()
+    slam = make_vi_system(device)
+    frame_ms, init_frame, t_prev = [], None, -1.0
+    for k in range(len(images)):
+        pts = imu_points(imu, t_prev, float(ts[k]))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slam.track_monocular(images[k], float(ts[k]), pts)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        if init_frame is None and slam.is_imu_initialized():
+            init_frame = k
+        t_prev = float(ts[k])
+    r = dict(config="euroc_vi", device=str(device), frames=len(images),
+             state=slam.get_tracking_state().name, vi_init_frame=init_frame,
+             dropped_imu_samples=slam.dropped_imu_samples,
+             **vi_metrics(slam, R_gt, t_gt, VI_TRUE_BG),
+             median_frame_ms=statistics.median(frame_ms))
+    r["failed_bars"] = vi_failures(r)
+    return r, slam
+
+
+@dataclasses.dataclass(frozen=True)
+class ViRig:
+    """A stereo- or RGB-D-inertial clip of the JAX e2e tests
+    (tests/test_e2e_stereo_inertial.py, test_e2e_rgbd_inertial.py): 60
+    frames at 320x240, 10 fps, the IMU of the same trajectory (body ==
+    left camera) with a gyro bias, VI_INIT_KFS 6 as the tests set it, and
+    the tests' bounds."""
+
+    name: str
+    sensor: sysm.Sensor
+    settings: str  # under the repository
+    render_kw: dict
+    n_frames: int = 60
+    bg_tol: float = 6e-3  # |bg - true| (2-norm)
+    min_tracked: int = 30
+    length_tol: float = 0.12
+    ate_max_m: float = 0.1
+
+
+VI_RIG_BG = np.array([0.008, -0.006, 0.01])
+VI_RIGS = {r.name: r for r in (
+    ViRig("synth_stereo_inertial", sysm.Sensor.IMU_STEREO,
+          "tests/data/synth_stereo.yaml", dict(stereo_baseline=0.12)),
+    ViRig("synth_rgbd_inertial", sysm.Sensor.IMU_RGBD,
+          "tests/data/synth_cam.yaml", dict(return_depth=True)),
+)}
+
+
+def render_vi_rig(rig: ViRig):
+    """(images, right images or depth maps, R_gt, t_gt, timestamps, imu)."""
+    frames = synthetic.render_sequence(
+        n_frames=rig.n_frames, width=320, height=240, fx=260.0, fy=260.0,
+        fps=10.0, seed=2, plane_depths=(5.0, 8.0), traj_scale=1.4,
+        **rig.render_kw)
+    traj = synthetic.default_trajectory(seed=5, scale=1.4)
+    imu = synthetic.make_imu(traj, -0.02, frames[-1][-1] + 0.01, rate=200.0,
+                             gyro_noise=2e-4, acc_noise=2e-3,
+                             gyro_bias=VI_RIG_BG, seed=5)
+    return (*frames, imu)
+
+
+def make_vi_rig_system(rig: ViRig, device) -> sysm.System:
+    slam = sysm.System(None, str(REPO / rig.settings), rig.sensor,
+                       device=device)
+    slam.VI_INIT_KFS = 6
+    return slam
+
+
+def track_vi_rig(slam: sysm.System, rig: ViRig, frames, k: int):
+    """Feed frame k of a rendered clip, with its IMU samples, to its entry
+    point."""
+    images, second, _, _, ts, imu = frames
+    t_prev = float(ts[k - 1]) if k else -1.0
+    pts = imu_points(imu, t_prev, float(ts[k]))
+    if rig.sensor == sysm.Sensor.IMU_RGBD:
+        return slam.track_rgbd(images[k], second[k], float(ts[k]), pts)
+    return slam.track_stereo(images[k], second[k], float(ts[k]), pts)
+
+
+def vi_rig_metrics(slam: sysm.System, rig: ViRig, R_gt, t_gt) -> dict:
+    """The tests' measures on `get_frame_trajectory()` over the frames
+    tracked OK: the gyro bias error, tracked frames, the unaligned length
+    ratio and the Sim3-aligned ATE; and the bars missed. Also, on the
+    online `get_trajectory()`, the length ratio of the frame-to-frame
+    steps into frames that inserted a keyframe and into the others (where
+    the length's excess comes from)."""
+    traj = slam.get_frame_trajectory()
+    ok = tracked_frames(slam)
+    est = np.array([-traj[k][1][:3, :3].T @ traj[k][1][:3, 3] for k in ok])
+    gt = np.array([-R_gt[k].T @ t_gt[k] for k in ok])
+    r = dict(config=rig.name, state=slam.get_tracking_state().name,
+             imu_initialized=bool(slam.is_imu_initialized()),
+             n_kf=int(slam.map.n_kf), n_tracked=len(ok),
+             bg_err=float(np.linalg.norm(np.asarray(slam.bg) - VI_RIG_BG)))
+    if len(ok) >= 3:
+        le = np.linalg.norm(np.diff(est, axis=0), axis=1).sum()
+        lg = np.linalg.norm(np.diff(gt, axis=0), axis=1).sum()
+        r.update(length_ratio=float(le / lg),
+                 ate_m=synthetic.ate_rmse(est, gt))
+        online = slam.get_trajectory()
+        c = np.array([-T[:3, :3].T @ T[:3, 3] for _, T in online])
+        g = np.array([-R_gt[k].T @ t_gt[k] for k in range(len(online))])
+        step_e = np.linalg.norm(np.diff(c, axis=0), axis=1)
+        step_g = np.linalg.norm(np.diff(g, axis=0), axis=1)
+        kf_t = {round(t, 9) for t in slam.kf_times}
+        at_kf = np.array([round(t, 9) in kf_t for t, _ in online[1:]])
+        r.update(online_length_ratio=float(step_e.sum() / step_g.sum()),
+                 keyframe_step_ratio=float(step_e[at_kf].sum()
+                                           / step_g[at_kf].sum()),
+                 other_step_ratio=float(step_e[~at_kf].sum()
+                                        / step_g[~at_kf].sum()))
+    failed = []
+    if r["state"] != "OK" or not r["imu_initialized"]:
+        failed.append(f"state {r['state']}, IMU initialized "
+                      f"{r['imu_initialized']}")
+    if not r["bg_err"] < rig.bg_tol:
+        failed.append(f"gyro bias error {r['bg_err']}")
+    if not r["n_tracked"] > rig.min_tracked:
+        failed.append(f"{r['n_tracked']} tracked")
+    if not abs(r.get("length_ratio", np.inf) - 1.0) < rig.length_tol:
+        failed.append(f"length ratio {r.get('length_ratio')}")
+    if not r.get("ate_m", np.inf) < rig.ate_max_m:
+        failed.append(f"ATE {r.get('ate_m')}")
+    r["failed_bars"] = failed
+    return r
+
+
+def run_vi_rigs(device, cpu_inputs: bool = False):
+    """Phase 10b's clips through the System; with `cpu_inputs`, every
+    image's features are extracted on the CPU (`extract_on_cpu`). Yields
+    one `vi_rig_metrics` dict per clip."""
+    for name, rig in VI_RIGS.items():
+        frames = render_vi_rig(rig)
+        slam = make_vi_rig_system(rig, device)
+        if cpu_inputs:
+            extract_on_cpu(slam)
+        for k in range(rig.n_frames):
+            track_vi_rig(slam, rig, frames, k)
+        r = vi_rig_metrics(slam, rig, frames[2], frames[3])
+        r.update(device=str(device), cpu_inputs=cpu_inputs)
+        yield r
+
+
 def tracked_frames(slam: sysm.System) -> list:
     return [k for k, r in enumerate(slam.tracking_log)
             if r["state"] == int(sysm.TrackingState.OK)]
@@ -675,20 +964,24 @@ def ate(slam: sysm.System, traj, R_gt, t_gt) -> float:
     return synthetic.ate_rmse(est, gt)
 
 
+def features_to(f: ex.Features, device) -> ex.Features:
+    return dataclasses.replace(f, **{
+        fl.name: getattr(f, fl.name).to(device)
+        for fl in dataclasses.fields(f)})
+
+
+def extract_on_cpu(slam: sysm.System) -> None:
+    """Extract `slam`'s features (every image it takes) on the CPU and move
+    them to its device."""
+    extract = ex.make_extractor(slam.ex_cfg)
+    slam._extract = lambda img: features_to(extract(img.cpu()), slam.device)
+
+
 def patch_inputs(slam: sysm.System, cpu_inputs: bool, init_offset: int):
     """Shift every initialization attempt's seed by `init_offset`; with
-    `cpu_inputs`, route `slam`'s extraction and the initializer's sampling
-    through the CPU and move the results to `slam.device`. Returns the
-    function that undoes the module-level patch."""
-    extract = ex.make_extractor(slam.ex_cfg)
-
-    def extract_on_cpu(img):
-        f = extract(img.cpu())
-        f = dataclasses.replace(f, uv=sysm.undistort(slam.cam, f.uv))
-        return dataclasses.replace(f, **{
-            fl.name: getattr(f, fl.name).to(slam.device)
-            for fl in dataclasses.fields(f)})
-
+    `cpu_inputs`, route `slam`'s extraction (`extract_on_cpu`) and the
+    initializer's sampling through the CPU. Returns the function that undoes
+    the module-level patch."""
     initialize = init_mod.initialize
 
     def initialize_patched(gen, uv1, uv2, mask, *args, **kwargs):
@@ -703,7 +996,7 @@ def patch_inputs(slam: sysm.System, cpu_inputs: bool, init_offset: int):
             *args, **kwargs)
 
     if cpu_inputs:
-        slam._extract_undistorted = extract_on_cpu
+        extract_on_cpu(slam)
     init_mod.initialize = initialize_patched
     return lambda: setattr(init_mod, "initialize", initialize)
 
@@ -795,16 +1088,17 @@ def main(argv=None):
     ap.add_argument("--init-offsets", type=int, nargs="+", default=[0])
     ap.add_argument("--config", default="euroc_mono",
                     choices=["euroc_mono", *RIGS, "euroc_reloc",
-                             "synth_loopy"])
+                             "synth_loopy", "euroc_vi", "vi_rigs"])
     args = ap.parse_args(argv)
     cuda = torch.device(args.device).type == "cuda"
     if cuda and not torch.cuda.is_available():
         ap.error("no CUDA device is available; pass --device cpu to run on "
                  "the CPU")
     if args.config != "euroc_mono":
-        if args.profile or args.cpu_inputs or args.init_offsets != [0]:
-            ap.error("--profile, --cpu-inputs and --init-offsets apply to "
-                     "euroc_mono only")
+        if args.profile or args.init_offsets != [0]:
+            ap.error("--profile and --init-offsets apply to euroc_mono only")
+        if args.cpu_inputs and args.config != "vi_rigs":
+            ap.error("--cpu-inputs applies to euroc_mono and vi_rigs only")
         if args.config == "euroc_reloc":
             r = run_reloc(args.device)
             r["failed_bars"] = reloc_failures(r)
@@ -813,6 +1107,11 @@ def main(argv=None):
             frames = render_loopy()
             for on in (True, False):
                 print(json.dumps(run_loopy(args.device, frames, on)[0]))
+        elif args.config == "euroc_vi":
+            print(json.dumps(run_euroc_vi(args.device)[0]))
+        elif args.config == "vi_rigs":
+            for r in run_vi_rigs(args.device, args.cpu_inputs):
+                print(json.dumps(r), flush=True)
         else:
             print(json.dumps(run_rig(args.config, args.device)))
         return

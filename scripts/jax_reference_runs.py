@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""The JAX System on the clips of the port's `chip_smoke.py` phases 8 and
-9, on the CPU: the reference figures beside the port's.
+"""The JAX System on the clips of the port's `chip_smoke.py` phases 8, 9
+and 10, on the CPU: the reference figures beside the port's.
 
-    python scripts/jax_reference_runs.py [--config euroc_reloc|synth_loopy]
+    python scripts/jax_reference_runs.py [--config euroc_reloc|synth_loopy|
+                                          euroc_vi ...]
 
 euroc_reloc: the 752x480 EuRoC clip rendered through the radtan distortion
 of `config/Monocular/EuRoC.yaml` (`system_run.render_euroc_distorted`), 40
@@ -15,7 +16,15 @@ closing on and off). synth_loopy_events (not in the default list): the
 same clip with loop closing on, frame by frame, in the JAX System, the
 port on the CPU and the port writing its BoW rows at the JAX System's
 slots: the frames on which each lost tracking, spawned a map, closed a
-loop or merged maps. Prints one JSON object per configuration.
+loop or merged maps. euroc_vi (not in the default list): phase 10's clip
+(`system_run.render_euroc_vi`: 120 frames at 600x350 with a 200 Hz IMU)
+through the JAX `System.track_monocular` in IMU_MONOCULAR mode on
+`config/Monocular-Inertial/EuRoC.yaml` as published, with the measures of
+`system_run.vi_metrics`. vi_rigs (not in the default list): phase 10b's
+IMU_STEREO and IMU_RGBD clips; with `--features PATH`, the stereo clip
+on the feature sets that the port extracted (`tools/vi_rig_diff.py
+--save-features`), in place of the JAX extraction.
+Prints one JSON object per configuration.
 """
 
 from __future__ import annotations
@@ -191,17 +200,92 @@ def synth_loopy_events() -> dict:
     return dict(config="synth_loopy_events", **out)
 
 
+def euroc_vi() -> dict:
+    from orb_slam3_ros2_tpu.runtime.system import Sensor, System
+    from orb_slam3_ros2_tpu_torch.tools import system_run as sr
+
+    images, R_gt, t_gt, ts, imu = sr.render_euroc_vi()
+    slam = System(None, os.path.join(ROOT, sr.EUROC_VI), Sensor.IMU_MONOCULAR)
+    init_frame, t_prev = None, -1.0
+    t0 = time.perf_counter()
+    for k in range(len(images)):
+        slam.track_monocular(images[k], float(ts[k]),
+                             sr.imu_points(imu, t_prev, float(ts[k])))
+        if init_frame is None and slam.is_imu_initialized():
+            init_frame = k
+        t_prev = float(ts[k])
+    r = dict(config="euroc_vi", state=slam.get_tracking_state().name,
+             vi_init_frame=init_frame, wall_s=time.perf_counter() - t0,
+             **sr.vi_metrics(slam, R_gt, t_gt, sr.VI_TRUE_BG))
+    r["failed_bars"] = sr.vi_failures(r)
+    return r
+
+
+def replay_features(slam, path: str) -> None:
+    """Feed the JAX `slam` the feature sets of a file written by the port's
+    `tools/vi_rig_diff.py --save-features`, in order, instead of
+    extracting."""
+    import jax.numpy as jnp
+    from orb_slam3_ros2_tpu.frontend.extractor import Features
+    from orb_slam3_ros2_tpu.ops.orb_descriptor import signs_from_bits
+
+    d = dict(np.load(path))
+    calls = iter(range(len(d["mask"])))
+
+    def replay(img):
+        i = next(calls)
+        bits = jnp.asarray(d["bits"][i].view(np.uint32))
+        return Features(uv=jnp.asarray(d["uv"][i]),
+                        level=jnp.asarray(d["level"][i]),
+                        angle=jnp.asarray(d["angle"][i]),
+                        score=jnp.asarray(d["score"][i]),
+                        signs=signs_from_bits(bits), bits=bits,
+                        mask=jnp.asarray(d["mask"][i]))
+
+    slam._extract = replay
+
+
+def vi_rigs(features=None) -> dict:
+    """The IMU_STEREO and IMU_RGBD clips of phase 10b (the JAX inertial
+    e2e tests') through the JAX System, with `system_run.vi_rig_metrics`;
+    with `features` (a file of the port's `vi_rig_diff --save-features`),
+    the stereo clip alone, fed those feature sets instead of extracting."""
+    from orb_slam3_ros2_tpu.runtime.system import Sensor, System
+    from orb_slam3_ros2_tpu_torch.tools import system_run as sr
+
+    out = {}
+    for name, rig in sr.VI_RIGS.items():
+        if features and rig.sensor != sr.sysm.Sensor.IMU_STEREO:
+            continue
+        frames = sr.render_vi_rig(rig)
+        slam = System(None, os.path.join(ROOT, rig.settings),
+                      Sensor(int(rig.sensor)))
+        slam.VI_INIT_KFS = 6
+        if features:
+            replay_features(slam, features)
+        for k in range(rig.n_frames):
+            sr.track_vi_rig(slam, rig, frames, k)
+        out[name] = sr.vi_rig_metrics(slam, rig, frames[2], frames[3])
+        out[name]["features"] = features
+        print(json.dumps({name: out[name]}), flush=True)
+    return dict(config="vi_rigs", **out)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", nargs="+",
                     default=["euroc_reloc", "synth_loopy"],
                     choices=["euroc_reloc", "synth_loopy",
-                             "synth_loopy_events"])
+                             "synth_loopy_events", "euroc_vi", "vi_rigs"])
+    ap.add_argument("--features", help="vi_rigs: run the stereo clip on "
+                    "the feature sets of this file (`tools/vi_rig_diff.py "
+                    "--save-features`) instead of extracting")
     args = ap.parse_args(argv)
+    runs = dict(euroc_reloc=euroc_reloc, synth_loopy=synth_loopy,
+                synth_loopy_events=synth_loopy_events, euroc_vi=euroc_vi,
+                vi_rigs=lambda: vi_rigs(args.features))
     for name in args.config:
-        print(json.dumps(dict(
-            euroc_reloc=euroc_reloc, synth_loopy=synth_loopy,
-            synth_loopy_events=synth_loopy_events)[name]()), flush=True)
+        print(json.dumps(runs[name]()), flush=True)
 
 
 if __name__ == "__main__":

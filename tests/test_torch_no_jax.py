@@ -2,8 +2,10 @@
 import fails, every module of `orb_slam3_ros2_tpu_torch` imports (the
 stereo module by name too), `frame_step` tracks a small image on the CPU,
 `System.track_monocular` takes two frames (the second one runs the matcher
-and the initializer), and `System.track_stereo` takes one rendered pair
-(stereo matching and the one-frame initialization)."""
+and the initializer), `System.track_stereo` takes one rendered pair
+(stereo matching and the one-frame initialization), and so does an
+IMU_STEREO System with an IMU sample, beside a preintegration and a VI
+initialization (the forward-mode Jacobians)."""
 
 import subprocess
 import sys
@@ -98,6 +100,21 @@ assert T.shape == (4, 4) and np.isfinite(T).all()
 assert isinstance(obs[0], stereo.StereoObs) and int(obs[0].valid.sum()) >= 80
 assert rig.get_tracking_state() == TrackingState.OK
 assert int(rig.map.n_lm) == int(obs[0].valid.sum())
+
+from orb_slam3_ros2_tpu_torch.imu import preintegration, vi_init
+from orb_slam3_ros2_tpu_torch.runtime.system import ImuPoint
+
+vi = System(None, cfg_path, Sensor.IMU_STEREO, device="cpu")
+T = vi.track_stereo(imgs_l[0], imgs_r[0], float(ts[0]),
+                    [ImuPoint([0.0, 0.0, 9.81], [0.0, 0.0, 0.1], 0.0)])
+assert np.isfinite(T).all() and len(vi._kf_imu_buf) == 1
+g = torch.tensor([[0.0, 0.0, 0.1]] * 20)
+a = torch.tensor([[0.0, 0.0, 9.81]] * 20)
+pres = preintegration.stack([preintegration.preintegrate(
+    g, a, torch.full((20,), 0.005), torch.ones(20, dtype=torch.bool))] * 2)
+out = vi_init.vi_init(pres, torch.eye(3).repeat(3, 1, 1),
+                      torch.zeros((3, 3)), n_iters=2, fix_scale=True)
+assert torch.isfinite(out.R_wg).all() and float(out.scale) == 1.0
 assert not any(k in ("jax", "orb_slam3_ros2_tpu")
                or k.startswith(("jax.", "orb_slam3_ros2_tpu."))
                for k, v in sys.modules.items() if v is not None)
