@@ -135,10 +135,40 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    sets that the card extracts misses the test's 12% there, so the bar is
    its number (`STEREO_VI_LENGTH_JAX_CARD`), and the run's feature sets
    must equal those it was read on (`tests/data/`; ROADMAP §3).
+11. Replay (`tools/run_slam.py`, the port's replay entry point, called as
+   a user calls it: `main(argv)` on the card). 11a: phase 4's clip as
+   uint8 frames, written by the port's `SequenceRecorder` as a EuRoC
+   directory (cam0 PNGs, `data.csv`, ground truth) and by its
+   `McapWriter` as an mcap rosbag2 of the same frames and timestamps under
+   `build/replay/`, replayed with `--dataset DIR` and with
+   `--playback-bag BAG` (`--checkpoint-every 10 --profile`). Bars: both
+   runs meet phase 4's bounds (ATE < 0.05 m, raw ATE < 0.12 m, >= 4
+   keyframes, > 100 landmarks, > 20 tracked); their trajectories are equal
+   to the last digit (the TUM files byte for byte, the poses exactly); the
+   PCD has points and `outputs.load_pcd` reads it back; the PGM and YAML
+   exist; the TUM file has one row per frame the System took (the JAX
+   session's format: frames before the initialization too); the last
+   checkpoint (frame 40) loads into a fresh `System(load_atlas=...)` with
+   the keyframes it was saved with. Prints the median `track_monocular`
+   ms (the System's own tracking log) against phase 4's in the same run,
+   the frame load's (PNG read and decode, or bag message decode) and the
+   Atlas checkpoint's medians, the loop's mean ms a frame, the stage
+   report, the three kernels' launches a frame, and whether the native
+   point-cloud filter loaded.
+   11b: phase 6's TUM1 clip written in the TUM RGB-D layout (`rgb/`,
+   16-bit `depth/` at 5000 units a metre, `rgb.txt`, `depth.txt`,
+   `groundtruth.txt`; `io/tum_rgbd.write_sequence`) and replayed with
+   `--mode rgbd`, held to phase 6's bars.
+   11c: the EuRoC directory's first 10 frames replayed again with
+   `--torch-profile`: from the trace, each stage's calls, the kernel
+   launches issued inside it, their device time, and the traced window's
+   device busy share. Bar: the trace shows `extract` once a frame with
+   launches and device time inside it.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON record (`launches`: the sum over the runs of phases 3-10b,
-each counted from 0 around its run; the per-level kernels: phase 2b; `ms`:
+each counted from 0 around its run, and of phase 11's four replays; the
+per-level kernels: phase 2b; `ms`:
 device time per launch at the main-path shape, `wrapper_ms` the wrapper's
 time there), the line before that the card, and the one before that the
 phases' results. Imports nothing of JAX.
@@ -148,8 +178,10 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import io
 import json
 import statistics
+import shutil
 import subprocess
 import sys
 import time
@@ -245,6 +277,13 @@ VI_RIGS_JAX_CPU = dict(
 # phase 9b: the corridor's corrected keyframe centres on the card against
 # the same run on the CPU (m)
 CORRIDOR_CENTRE_M = 1e-3
+# phase 11: where the replays' inputs and artifacts go (gitignored), and
+# the checkpoint period (phase 4's 40 frames: the last one checkpoints)
+REPLAY_DIR = ROOT / "build" / "replay"
+REPLAY_CKPT_EVERY = 10
+# phase 11c: the frames replayed under torch.profiler (phase 4's clip
+# initializes at frame 2, so the rest track)
+REPLAY_PROFILE_FRAMES = 10
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 operations/s
 # outside the tensor cores (integer and min/max operations are counted at
@@ -982,8 +1021,12 @@ def run_system(dev, record):
                 sr.N_FRAMES, "system")
     ate = sr.ate(slam, slam.get_frame_trajectory(), R_gt, t_gt)
     ate_raw = sr.ate(slam, slam.get_trajectory(), R_gt, t_gt)
-    out.update(ate_m=ate, ate_raw_m=ate_raw)
-    print(f"system: ATE {ate:.4f} m (raw {ate_raw:.4f} m)")
+    # the System's own clock around each track_monocular call (phase 11
+    # reads the same one in its replays)
+    out.update(ate_m=ate, ate_raw_m=ate_raw, track_ms_median=statistics.median(
+        r["ms"] for r in slam.tracking_log))
+    print(f"system: ATE {ate:.4f} m (raw {ate_raw:.4f} m), median "
+          f"track_monocular {out['track_ms_median']:.3f} ms (tracking log)")
     require(out["n_tracked"] > MIN_TRACKED,
             f"only {out['n_tracked']} tracked frames")
     require(out["n_kf"] >= MIN_KF, f"only {out['n_kf']} keyframes")
@@ -1506,6 +1549,207 @@ def run_vi_rigs(dev, record):
     return out
 
 
+# ----------------------------------------------------------- phase 11
+
+def replay(argv, label: str):
+    """`tools/run_slam.main(argv)` on the card with the three kernels'
+    launch counters from 0; the runner's printed report is kept out of
+    this script's output. Returns (report, session, launches, summary)."""
+    import torch
+    from orb_slam3_ros2_tpu_torch.runtime import outputs
+    from orb_slam3_ros2_tpu_torch.tools import run_slam
+
+    counters = _counters()
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        report, sess = run_slam.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(zip(COUNTED, (fn.launches for fn in counters)))
+    slam = sess.system
+    n = report["frames"]
+    stages = report["stages"]
+    summary = dict(
+        frames=n, wall_s=wall, loop_ms_per_frame=1e3 / report["fps"],
+        track_ms_median=statistics.median(r["ms"] for r in slam.tracking_log),
+        load_ms_median=stages["load_frame"]["p50_ms"],
+        checkpoint_ms_median=stages.get("checkpoint", {}).get("p50_ms"),
+        launches=launches,
+        launches_per_frame={k: v / n for k, v in launches.items()},
+        native_filter=outputs._native_filter() is not None,
+        n_kf=int(slam.map.n_kf), n_lm=int(slam.map.lm_valid.sum()),
+        stages=stages)
+    print(f"{label}: {n} frames, median track {summary['track_ms_median']:.3f}"
+          f" ms, median frame load {summary['load_ms_median']:.3f} ms, "
+          f"median checkpoint {summary['checkpoint_ms_median']} ms, loop "
+          f"{summary['loop_ms_per_frame']:.3f} ms a frame ({wall:.2f} s with "
+          f"shutdown); launches a frame "
+          + ", ".join(f"{k} {v:.3f}" for k, v in
+                      summary["launches_per_frame"].items())
+          + f"; native point-cloud filter loaded: {summary['native_filter']}")
+    print(f"{label} stages: " + json.dumps(
+        {k: {f: v[f] for f in ("n", "p50_ms", "total_ms")}
+         for k, v in stages.items()}))
+    require(launches["frontend_packed"] >= n and all(launches.values()),
+            f"{label}: kernel launches {launches} for {n} frames")
+    return report, sess, launches, summary
+
+
+def run_replay(dev, record, system, tum1_frames):
+    """Phase 11: the replay entry point over a EuRoC directory and an mcap
+    bag of phase 4's clip (11a) and a TUM RGB-D directory of phase 6's
+    (11b); `record` receives each run's launch counts."""
+    from orb_slam3_ros2_tpu_torch.io import recording, rosbag, tum_rgbd
+    from orb_slam3_ros2_tpu_torch.runtime import outputs
+    from orb_slam3_ros2_tpu_torch.runtime import system as sysm
+    from orb_slam3_ros2_tpu_torch.tools import system_run as sr
+
+    shutil.rmtree(REPLAY_DIR, ignore_errors=True)
+    REPLAY_DIR.mkdir(parents=True)
+    imgs, R_gt, t_gt, ts = sr.render()
+    u8 = np.clip(imgs, 0, 255).astype(np.uint8)
+    t_io = time.perf_counter()
+    rec = recording.SequenceRecorder(str(REPLAY_DIR / "euroc"))
+    bag = rosbag.McapWriter(str(REPLAY_DIR / "bag"))
+    bag.add_topic("/cam0/image_raw", "sensor_msgs/msg/Image")
+    for k in range(len(u8)):
+        rec.add_frame(u8[k], float(ts[k]))
+        rec.add_groundtruth(float(ts[k]), -R_gt[k].T @ t_gt[k])
+        bag.write("/cam0/image_raw", float(ts[k]),
+                  rosbag.encode_image(u8[k], float(ts[k])))
+    rec.close()
+    bag.close()
+    print(f"replay: wrote {len(u8)} frames as a EuRoC directory and an mcap "
+          f"bag ({Path(bag.path).stat().st_size / 1e6:.1f} MB) in "
+          f"{time.perf_counter() - t_io:.2f} s")
+    settings = sr.write_settings(REPLAY_DIR / "euroc.yaml")
+    common = ["--settings", settings, "--output-root",
+              str(REPLAY_DIR / "out"), "--checkpoint-every",
+              str(REPLAY_CKPT_EVERY), "--profile"]
+    require(len(u8) % REPLAY_CKPT_EVERY == 0,
+            "the clip's last frame must checkpoint")
+    out, traj = {}, {}
+    for label, args in (("replay_dir", ["--dataset",
+                                        str(REPLAY_DIR / "euroc")]),
+                        ("replay_bag", ["--playback-bag",
+                                        str(REPLAY_DIR / "bag")])):
+        report, sess, launches, r = replay(
+            common + args + ["--output-name", label], label)
+        slam = sess.system
+        tracked = sr.tracked_frames(slam)
+        r.update(n_tracked=len(tracked),
+                 ate_m=sr.ate(slam, slam.get_frame_trajectory(), R_gt, t_gt),
+                 ate_raw_m=sr.ate(slam, slam.get_trajectory(), R_gt, t_gt),
+                 report_ate_m=report.get("ate_rmse_m"),
+                 report_kf_ate_m=report.get("kf_ate_rmse_m"))
+        print(f"{label}: ATE {r['ate_m']:.4f} m (raw {r['ate_raw_m']:.4f} "
+              f"m; the report's {r['report_ate_m']}), {r['n_kf']} keyframes, "
+              f"{r['n_lm']} landmarks, {len(tracked)} tracked")
+        require(slam.get_tracking_state() == sysm.TrackingState.OK,
+                f"{label}: ends in state {slam.get_tracking_state().name}")
+        require(r["n_tracked"] > MIN_TRACKED,
+                f"{label}: only {r['n_tracked']} tracked frames")
+        require(r["n_kf"] >= MIN_KF, f"{label}: only {r['n_kf']} keyframes")
+        require(r["n_lm"] > MIN_LM, f"{label}: only {r['n_lm']} landmarks")
+        require(r["ate_m"] < ATE_MAX_M, f"{label}: ATE {r['ate_m']:.4f} m")
+        require(r["ate_raw_m"] < ATE_RAW_MAX_M,
+                f"{label}: raw ATE {r['ate_raw_m']:.4f} m")
+        art = report["artifacts"]
+        cloud = outputs.load_pcd(art["pcd"])
+        r["pcd_points"] = len(cloud)
+        require(cloud.ndim == 2 and cloud.shape[1] == 3 and len(cloud) > 0,
+                f"{label}: PCD {art['pcd']} holds {cloud.shape}")
+        require(Path(art["grid"]).is_file()
+                and Path(art["grid"][:-4] + ".yaml").is_file(),
+                f"{label}: no PGM + YAML at {art['grid']}")
+        rows = Path(art["trajectory"]).read_text().splitlines()
+        require(len(rows) == len(slam.get_frame_trajectory()) == len(u8),
+                f"{label}: {len(rows)} TUM rows for {len(u8)} frames")
+        ckpt = Path(sess.out_dir) / "checkpoint_atlas.npz"
+        loaded = sysm.System(None, settings, sysm.Sensor.MONOCULAR,
+                             device=dev, load_atlas=str(ckpt))
+        r["checkpoint_n_kf"] = int(loaded.map.n_kf)
+        require(r["checkpoint_n_kf"] == r["n_kf"],
+                f"{label}: the checkpoint loads {r['checkpoint_n_kf']} "
+                f"keyframes, saved with {r['n_kf']}")
+        traj[label] = (Path(art["trajectory"]).read_bytes(),
+                       slam.get_frame_trajectory())
+        r["phase4_track_ms_median"] = system["track_ms_median"]
+        print(f"{label}: median track {r['track_ms_median']:.3f} ms against "
+              f"phase 4's {system['track_ms_median']:.3f} ms in this run; "
+              f"{r['pcd_points']} cloud points, {len(rows)} TUM rows, the "
+              f"checkpoint loads {r['checkpoint_n_kf']} keyframes")
+        add_launches(record, launches)
+        out[label] = r
+    (a, fa), (b, fb) = traj["replay_dir"], traj["replay_bag"]
+    same = a == b and all(np.array_equal(x, y)
+                          for (_, x), (_, y) in zip(fa, fb))
+    print(f"replay: directory and bag trajectories equal: {same}")
+    require(same, "replay: the directory and bag trajectories differ")
+
+    # 11c: the directory's first frames again under --torch-profile: each
+    # stage's kernel launches and their device time, from the trace
+    # (`utils/tracing.stage_summary`)
+    prof = REPLAY_DIR / "prof"
+    report, sess, launches, r = replay(
+        common + ["--dataset", str(REPLAY_DIR / "euroc"), "--max-frames",
+                  str(REPLAY_PROFILE_FRAMES), "--torch-profile", str(prof),
+                  "--output-name", "replay_profile"], "replay_profile")
+    st = json.loads((prof / "stages.json").read_text())
+    whole = st.pop("_trace")
+    r["torch_profile"] = dict(st, _trace=whole)
+    per_call = {k: {"n": v["n"], "launches": v["launches"] / v["n"],
+                    "host_ms": v["host_ms"] / v["n"],
+                    "device_ms": v["device_ms"] / v["n"]}
+                for k, v in st.items()}
+    print("replay_profile stages (a call; launches by their host time): "
+          + json.dumps(per_call))
+    print(f"replay_profile: {whole['launches']} launches in "
+          f"{whole['window_ms']:.3f} ms traced, device busy "
+          f"{whole['device_busy_ms']:.3f} ms "
+          f"({100 * whole['device_busy_ms'] / whole['window_ms']:.2f}%)")
+    ex = st.get("extract", {})
+    require(ex.get("n") == REPLAY_PROFILE_FRAMES and ex["launches"] > 0
+            and ex["device_ms"] > 0 and whole["device_busy_ms"] > 0,
+            f"replay_profile: the trace shows no device work in extract "
+            f"({ex}, {whole})")
+    add_launches(record, launches)
+    out["replay_profile"] = r
+
+    # 11b: phase 6's clip in the TUM RGB-D layout
+    rig = sr.RIGS["tum1_rgbd"]
+    images, depths, R1, t1, ts1 = tum1_frames
+    centres = np.stack([-R1[k].T @ t1[k] for k in range(len(ts1))])
+    root = tum_rgbd.write_sequence(str(REPLAY_DIR / "tum1"), images, depths,
+                                   ts1, centres)
+    spath = REPLAY_DIR / "tum1.yaml"
+    spath.write_text(rig.settings())
+    report, sess, launches, r = replay(
+        ["--settings", str(spath), "--mode", "rgbd", "--dataset", root,
+         "--output-root", str(REPLAY_DIR / "out"), "--output-name",
+         "replay_tum1", "--profile"], "replay_tum1")
+    slam = sess.system
+    r.update(sr.rig_metrics(slam, R1, t1), report_ate_m=report.get(
+        "ate_rmse_m"))
+    print(f"replay_tum1: ATE {r['ate_m']} m, length ratio "
+          f"{r['length_ratio']}, {r['n_tracked']} tracked, {r['n_kf']} "
+          f"keyframes (phase 6: {rig.ate_max_m} m, 1 +- {rig.length_tol})")
+    require(r["n_tracked"] > rig.min_tracked,
+            f"replay_tum1: only {r['n_tracked']} tracked frames")
+    require(r["ate_m"] < rig.ate_max_m, f"replay_tum1: ATE {r['ate_m']} m")
+    require(abs(r["length_ratio"] - 1.0) < rig.length_tol,
+            f"replay_tum1: length ratio {r['length_ratio']}")
+    require(launches["frontend_packed"] == len(ts1),
+            f"replay_tum1: frontend kernel launched "
+            f"{launches['frontend_packed']} times for {len(ts1)} frames")
+    add_launches(record, launches)
+    out["replay_tum1"] = r
+    return out
+
+
 def check_global_ba(dev, m):
     """`tracking.global_ba` as `System._run_global_ba` runs it (the live
     keyframes padded to a power of 2, keyframe 0 fixed, 8 iterations) on
@@ -1645,6 +1889,7 @@ def main() -> int:
     loopy["corridor"] = run_corridor(dev, record)
     euroc_vi = run_euroc_vi(dev, record)
     vi_rigs = run_vi_rigs(dev, record)
+    replays = run_replay(dev, record, system, clips["tum1_rgbd"])
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "wrapper_ms")
@@ -1662,7 +1907,8 @@ def main() -> int:
                       "rgbd": rigs["tum1_rgbd"],
                       "fisheye_stereo": rigs["tumvi_stereo"],
                       "euroc_reloc": reloc, "synth_loopy": loopy,
-                      "euroc_vi": euroc_vi, "vi_rigs": vi_rigs}))
+                      "euroc_vi": euroc_vi, "vi_rigs": vi_rigs,
+                      "replay": replays}))
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

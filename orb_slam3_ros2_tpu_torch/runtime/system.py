@@ -36,6 +36,16 @@ IMU is initialized, and its Sim3 keeps the scale.
 What this slice leaves out raises `NotImplementedError` naming the ROADMAP
 item it waits on (`ROADMAP.md` §1): a device mesh (item 9) and the
 pipelined mode (item 10).
+
+`System.tracer` (`utils/tracing.StageTracer`) times the JAX System's stages
+under the same names, where the port has the stage: `extract`,
+`stereo_match`, `predict`, `track_frame`, `insert_kf`, `mapping_fused`,
+`local_ba` and `loop_closing`. The JAX stages `frame_step`,
+`mapping_dispatch` and `summary_fetch` (and the `insert_kf` of
+`_consume_pend`) belong to its pipelined mode, which the port does not
+have. A stage reads the host clock and adds no device synchronization:
+the stages that end in a summary fetch (`track_frame`, `mapping_fused`)
+wait for their device work, the others time its enqueueing.
 """
 
 from __future__ import annotations
@@ -67,6 +77,7 @@ from orb_slam3_ros2_tpu_torch.loop import dbow2 as dbow2_mod
 from orb_slam3_ros2_tpu_torch.loop import vocab as vocab_mod
 from orb_slam3_ros2_tpu_torch.models import cameras as cam_mod
 from orb_slam3_ros2_tpu_torch.ops import matcher
+from orb_slam3_ros2_tpu_torch.utils import tracing
 
 MIN_TRACK_INLIERS = 15  # System.MIN_TRACK_INLIERS
 MATCH_CAP_VISIBLE = 4096  # System.MATCH_CAP_VISIBLE
@@ -389,6 +400,8 @@ class System:
         self._t_bc = self._tensor(T_bc[:3, 3])
         self._pre_cap = max(int(4.0 * self.settings.imu_frequency
                                 / max(self.settings.fps, 1.0)), 16)
+        # per-stage wall-clock tracer (host clock, no device sync)
+        self.tracer = tracing.StageTracer()
         self.reset()
         # `System.LoadAtlasFromFile`: a missing file starts a new Atlas; a
         # loaded one is relocalized into, and never discarded
@@ -574,7 +587,9 @@ class System:
         visual modes ignore them."""
         t0 = _time.perf_counter()
         self._buffer_imu(imu_measurements)
-        feats = self._extract_undistorted(self._preprocess(im))
+        img = self._preprocess(im)
+        with self.tracer.stage("extract"):
+            feats = self._extract_undistorted(img)
         if self.state == TrackingState.NOT_INITIALIZED:
             self._try_initialize(feats, timestamp)
         elif self.state == TrackingState.OK:
@@ -594,11 +609,13 @@ class System:
         self._buffer_imu(imu_measurements)
         img_l = self._preprocess(im_left)
         img_r = self._preprocess(im_right)
-        feats = self._extract_undistorted(img_l)
-        feats_r = (self._extract(img_r) if self._stereo_right_raw
-                   else self._extract_undistorted(img_r))
-        self._step_metric(feats, self._stereo_obs(feats, feats_r), timestamp,
-                          imu_measurements)
+        with self.tracer.stage("extract"):
+            feats = self._extract_undistorted(img_l)
+            feats_r = (self._extract(img_r) if self._stereo_right_raw
+                       else self._extract_undistorted(img_r))
+        with self.tracer.stage("stereo_match"):
+            sm = self._stereo_obs(feats, feats_r)
+        self._step_metric(feats, sm, timestamp, imu_measurements)
         return self._end_frame(feats, timestamp, t0)
 
     def track_rgbd(self, im: np.ndarray, depthmap: np.ndarray,
@@ -610,13 +627,17 @@ class System:
         the IMU samples in (t_prev, timestamp]."""
         t0 = _time.perf_counter()
         self._buffer_imu(imu_measurements)
-        f_raw = self._extract(self._preprocess(im))
-        feats = dataclasses.replace(f_raw, uv=undistort(self.cam, f_raw.uv))
+        img = self._preprocess(im)
+        with self.tracer.stage("extract"):
+            f_raw = self._extract(img)
+            feats = dataclasses.replace(f_raw,
+                                        uv=undistort(self.cam, f_raw.uv))
         cam = self.cam
-        sm = stereo_mod.obs_from_depth(
-            f_raw.uv, feats.uv, feats.mask, self._tensor(depthmap), cam.fx,
-            cam.fy, cam.cx, cam.cy,
-            max_depth=float(self.settings.th_far_points or 40.0))
+        with self.tracer.stage("stereo_match"):
+            sm = stereo_mod.obs_from_depth(
+                f_raw.uv, feats.uv, feats.mask, self._tensor(depthmap),
+                cam.fx, cam.fy, cam.cx, cam.cy,
+                max_depth=float(self.settings.th_far_points or 40.0))
         self._step_metric(feats, sm, timestamp, imu_measurements)
         return self._end_frame(feats, timestamp, t0)
 
@@ -659,6 +680,20 @@ class System:
         """Map-point snapshot (`GetMapPCL`)."""
         X = self.map.lm_X.cpu().numpy()
         return X[self.map.lm_valid.cpu().numpy()]
+
+    def get_pretty_frame(self, img: Optional[np.ndarray] = None
+                         ) -> Optional[np.ndarray]:
+        """Annotated tracking image (the fork's `getPrettyFrame`,
+        `src/imu_mono_realsense.cpp:340`): `img` with the last frame's
+        detected keypoints drawn on it, for the video recorder. The engine
+        keeps features, not images, so the caller passes the pixels."""
+        if self.last_frame_feats is None or img is None:
+            return None
+        from orb_slam3_ros2_tpu_torch.runtime import outputs as out_mod
+
+        f = self.last_frame_feats
+        return out_mod.annotate_frame(np.asarray(img, np.uint8),
+                                      f.uv.cpu().numpy(), f.mask.cpu().numpy())
 
     def get_tracking_state(self) -> TrackingState:
         return self.state
@@ -715,6 +750,10 @@ class System:
         kt = self.map.kf_t[:n_kf].cpu().numpy()
         return [(self.kf_times[k] if k < len(self.kf_times) else 0.0,
                  self._pose44(kR[k], kt[k])) for k in range(n_kf)]
+
+    def shutdown(self):
+        """The reference's `Shutdown`. The System runs synchronously, so
+        there is no mapping thread to stop, as in the JAX System."""
 
     # ------------------------------------------------------- initialization
 
@@ -830,18 +869,20 @@ class System:
     def _track(self, feats, timestamp: float, stereo=None, imu=()):
         # IMU-propagated prediction once the IMU is initialized (the
         # reference's PredictStateIMU), constant velocity otherwise
-        T_pred = self._predict_pose_imu(list(imu), timestamp)
-        if T_pred is None:
-            T_pred = self._predict_pose()
+        with self.tracer.stage("predict"):
+            T_pred = self._predict_pose_imu(list(imu), timestamp)
+            if T_pred is None:
+                T_pred = self._predict_pose()
         cam = self.cam
         # one device program and one fetch of the (16,) summary
-        tm, res, obs_clean, summary = trk.track_frame(
-            self.map, feats.uv, feats.bits, feats.mask, feats.level,
-            self._tensor(T_pred[:3, :3]), self._tensor(T_pred[:3, 3]),
-            cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height,
-            scale_factor=self.ex_cfg.scale_factor,
-            min_matches=self.MIN_TRACK_INLIERS, cap_visible=self._cap_vis)
-        s = summary.cpu().numpy()
+        with self.tracer.stage("track_frame"):
+            tm, res, obs_clean, summary = trk.track_frame(
+                self.map, feats.uv, feats.bits, feats.mask, feats.level,
+                self._tensor(T_pred[:3, :3]), self._tensor(T_pred[:3, 3]),
+                cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height,
+                scale_factor=self.ex_cfg.scale_factor,
+                min_matches=self.MIN_TRACK_INLIERS, cap_visible=self._cap_vis)
+            s = summary.cpu().numpy()
         n_match, n_inl, n_kf_now = int(s[12]), int(s[13]), int(s[14])
         self._scene_depth = float(s[15])
         if n_match < self.MIN_TRACK_INLIERS or n_inl < self.MIN_TRACK_INLIERS:
@@ -865,12 +906,13 @@ class System:
                               - self._body_center(T_prev)) / dt
         self.frames_since_kf += 1
         if self._need_keyframe(n_inl, n_kf_now):
-            if self.sensor in IMU_MODES:
-                self._insert_keyframe_inertial(feats, obs_clean, timestamp,
-                                               n_inl, stereo)
-            else:
-                self._insert_keyframe_fused(feats, obs_clean, timestamp,
-                                            n_inl, stereo)
+            with self.tracer.stage("insert_kf"):
+                if self.sensor in IMU_MODES:
+                    self._insert_keyframe_inertial(feats, obs_clean,
+                                                   timestamp, n_inl, stereo)
+                else:
+                    self._insert_keyframe_fused(feats, obs_clean, timestamp,
+                                                n_inl, stereo)
 
     def _need_keyframe(self, n_inl: int, n_kf: int = -1) -> bool:
         """The keyframe cadence: a keyframe every max(fps // 2, 5) frames,
@@ -910,18 +952,21 @@ class System:
         so `mapping_step` stays one device program), compaction triggers
         and loop closing."""
         cam = self.cam
-        m, summary = mapping_step(
-            self.map, self._tensor(self.Tcw[:3, :3]),
-            self._tensor(self.Tcw[:3, 3]), timestamp, feats.uv, feats.level,
-            feats.bits, feats.mask, obs_clean.to(torch.int32), cam.fx,
-            cam.fy, cam.cx, cam.cy, cam.width, cam.height,
-            n_window=self.LOCAL_WINDOW, n_fixed_ring=self.LOCAL_FIXED_RING,
-            stereo=None if stereo is None else (stereo.X_cam, stereo.valid))
-        self.map = m
-        s = summary.cpu().numpy()
-        n_kf_after, n_lm = int(s[12]), int(s[13])
-        new_id = n_kf_after - 1
-        self._add_bow_row(new_id, feats)
+        with self.tracer.stage("mapping_fused"):
+            m, summary = mapping_step(
+                self.map, self._tensor(self.Tcw[:3, :3]),
+                self._tensor(self.Tcw[:3, 3]), timestamp, feats.uv,
+                feats.level, feats.bits, feats.mask,
+                obs_clean.to(torch.int32), cam.fx, cam.fy, cam.cx, cam.cy,
+                cam.width, cam.height, n_window=self.LOCAL_WINDOW,
+                n_fixed_ring=self.LOCAL_FIXED_RING,
+                stereo=(None if stereo is None
+                        else (stereo.X_cam, stereo.valid)))
+            self.map = m
+            s = summary.cpu().numpy()
+            n_kf_after, n_lm = int(s[12]), int(s[13])
+            new_id = n_kf_after - 1
+            self._add_bow_row(new_id, feats)
         self.kf_times.append(timestamp)
         self.frames_since_kf = 0
         self.last_kf_inliers = max(n_inl, 1)
@@ -930,7 +975,8 @@ class System:
             new_id = int(kf_remap[new_id])
         closed, merged = self.n_loops_closed, self.n_maps_merged
         if self.settings.loop_closing:
-            self._try_close_loop(new_id, feats)
+            with self.tracer.stage("loop_closing"):
+                self._try_close_loop(new_id, feats)
         if self.n_loops_closed != closed:
             # the correction moved the keyframe: re-read it
             self.Tcw = self._pose44(self.map.kf_R[new_id].cpu().numpy(),
@@ -974,10 +1020,11 @@ class System:
         self._add_bow_row(new_id, feats)
         self.kf_times.append(timestamp)
         self._finish_kf_preint(timestamp)
-        if not (self.imu_initialized and self._vi_local_ba_step()):
-            self.map = window_ba(self.map, new_id, cam.fx, cam.fy, cam.cx,
-                                 cam.cy, self.LOCAL_WINDOW,
-                                 self.LOCAL_FIXED_RING)
+        with self.tracer.stage("local_ba"):
+            if not (self.imu_initialized and self._vi_local_ba_step()):
+                self.map = window_ba(self.map, new_id, cam.fx, cam.fy,
+                                     cam.cx, cam.cy, self.LOCAL_WINDOW,
+                                     self.LOCAL_FIXED_RING)
         self.map = trk.cull_landmarks(self.map)
         self.frames_since_kf = 0
         self.last_kf_inliers = max(n_inl, 1)
@@ -1000,7 +1047,8 @@ class System:
             self._refine_scale()
         merged = self.n_maps_merged
         if self.settings.loop_closing:
-            self._try_close_loop(new_id, feats)
+            with self.tracer.stage("loop_closing"):
+                self._try_close_loop(new_id, feats)
         if self.n_maps_merged == merged and 0 <= new_id < int(self.map.n_kf):
             self.Tcw = self._pose44(self.map.kf_R[new_id].cpu().numpy(),
                                     self.map.kf_t[new_id].cpu().numpy())

@@ -5,7 +5,9 @@ stereo module by name too), `frame_step` tracks a small image on the CPU,
 and the initializer), `System.track_stereo` takes one rendered pair
 (stereo matching and the one-frame initialization), and so does an
 IMU_STEREO System with an IMU sample, beside a preintegration and a VI
-initialization (the forward-mode Jacobians)."""
+initialization (the forward-mode Jacobians), and a `SlamSession` takes two
+frames and writes its PCD cloud, PGM grid and TUM trajectory on
+`shutdown()`."""
 
 import subprocess
 import sys
@@ -115,6 +117,17 @@ pres = preintegration.stack([preintegration.preintegrate(
 out = vi_init.vi_init(pres, torch.eye(3).repeat(3, 1, 1),
                       torch.zeros((3, 3)), n_iters=2, fix_scale=True)
 assert torch.isfinite(out.R_wg).all() and float(out.scale) == 1.0
+
+from orb_slam3_ros2_tpu_torch.runtime.session import SlamSession
+
+sess = SlamSession(cfg_path, Sensor.MONOCULAR, output_name="nojax",
+                   output_root=tempfile.mkdtemp(), device="cpu")
+for k in (0, 2):
+    sess.feed(imgs[k], float(k) * 0.1)
+art = sess.shutdown()
+for key in ("pcd", "grid", "trajectory"):
+    assert os.path.isfile(art[key]), (key, art)
+assert len(open(art["trajectory"]).read().splitlines()) == 2
 assert not any(k in ("jax", "orb_slam3_ros2_tpu")
                or k.startswith(("jax.", "orb_slam3_ros2_tpu."))
                for k, v in sys.modules.items() if v is not None)
