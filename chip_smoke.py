@@ -3,7 +3,8 @@
 plain version, the per-frame tracking slice, the System in its
 monocular, stereo, RGB-D and fisheye-stereo configurations, relocalization
 and the Atlas on the stock EuRoC settings, loop closing, and the inertial
-sensors on the published EuRoC mono-inertial settings.
+sensors on the published EuRoC mono-inertial settings, the sharded
+solvers, map-to-map ICP and the multi-process sessions.
 
     python3 chip_smoke.py
 
@@ -164,11 +165,38 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    launches issued inside it, their device time, and the traced window's
    device busy share. Bar: the trace shows `extract` once a frame with
    launches and device time inside it.
+12. Mesh (`parallel/`, `atlas/icp_align.py`). 12a: each sharded solver at
+   full width three ways: over a mesh of 1 shard on an NCCL group of world
+   size 1 (each psum runs the collective), over 8 shards on the one card,
+   and its one-device counterpart; ms per iteration of each. The
+   landmark-sharded BA on MULTISESSION.json's 48-pose x 16,384-landmark
+   window (`tools/multisession.py`): R within 1e-4, the camera centres
+   within 3e-3 m after the one free scale of the window (only keyframe 0
+   is fixed) and the cost within 2% of `bundle_adjust` with the same chi2
+   refresh period, and the cost within 2% of the JAX CPU mesh's
+   491,553.28. The edge-sharded pose graph on the 12-session, 384-keyframe
+   city graph: R, t, s within 5e-4 / 5e-3 / 5e-4 of `optimize_pose_graph`,
+   rmse after within 10% of the JAX CPU mesh's 0.0198 m. The sharded VI BA
+   on tests/test_sharded_vi_ba.py's clip under that test's bars, with the
+   gravity direction fixed and optimized (the solved tangent nonzero and
+   within 1e-3 of `vi_bundle_adjust`'s). The block BA on
+   tests/test_block_ba.py's four blocks over a (kf, lm) = (2, 4) mesh:
+   each block within 1e-4 of the 1-D solver on it alone. 12b: phase 9b's
+   corridor with `System(mesh=make_mesh(1))` on the NCCL group: the loop
+   closes, the global BA ran over the mesh, the corrected centres equal
+   phase 9b's within 1e-3 m, and the loop closure's match calls equal
+   their plain versions. 12c: phase 4's map cloud aligned with
+   `align_maps` to a copy moved by 5 degrees and 0.2 m
+   (tests/test_icp_align.py's bars). 12d: `parallel.distributed_session`
+   in 2 processes x 4 shards and `parallel.live_session` in 4 processes x
+   2 shards, every rank on the one card, gloo between them, held to
+   tests/test_distributed_session.py's and test_live_session.py's bars;
+   each rank's tracking ms per frame and kernel launches are printed.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON record (`launches`: the sum over the runs of phases 3-10b,
-each counted from 0 around its run, and of phase 11's four replays; the
-per-level kernels: phase 2b; `ms`:
+each counted from 0 around its run, of phase 11's four replays and of
+phase 12b; the per-level kernels: phase 2b; `ms`:
 device time per launch at the main-path shape, `wrapper_ms` the wrapper's
 time there), the line before that the card, and the one before that the
 phases' results. Imports nothing of JAX.
@@ -180,6 +208,7 @@ import concurrent.futures
 import contextlib
 import io
 import json
+import os
 import statistics
 import shutil
 import subprocess
@@ -1024,7 +1053,7 @@ def run_system(dev, record):
     # the System's own clock around each track_monocular call (phase 11
     # reads the same one in its replays)
     out.update(ate_m=ate, ate_raw_m=ate_raw, track_ms_median=statistics.median(
-        r["ms"] for r in slam.tracking_log))
+        r["ms"] for r in slam.tracking_log), map_cloud=slam.get_map_pcl())
     print(f"system: ATE {ate:.4f} m (raw {ate_raw:.4f} m), median "
           f"track_monocular {out['track_ms_median']:.3f} ms (tracking log)")
     require(out["n_tracked"] > MIN_TRACKED,
@@ -1802,6 +1831,535 @@ def check_global_ba(dev, m):
     return out
 
 
+# ----------------------------------------------------------- phase 12
+
+# MULTISESSION.json's numbers from the JAX package on its 8-device virtual
+# CPU mesh (`scripts/multisession_demo.py`): the 48 x 16,384 BA window's
+# final cost (:15) and the city pose graph's rmse after (:9)
+MULTISESSION_BA_COST = 491553.28
+MULTISESSION_PG_RMSE_M = 0.0198
+BA_COST_REL, PG_RMSE_REL = 0.02, 0.10  # the bars against those
+MESH_SHARDS = 8  # the local shards of the "8 shards on one card" runs
+# the sharded solvers against the one-device ones: tests/test_multiprocess.py
+# :107-109 for BA and VI BA, tests/test_sharded_pose_graph.py:103-108 for
+# the pose graph, tests/test_block_ba.py:199 for the blocks
+BA_R_ATOL, BA_T_ATOL, BA_COST_RTOL = 1e-4, 3e-3, 2e-2
+PG_R_ATOL, PG_T_ATOL, PG_S_ATOL = 5e-4, 5e-3, 5e-4
+BLOCK_T_ATOL = 1e-4
+VI_THG_ATOL = 1e-3  # the solved gravity tangent against the one-device one
+# 12c: the known motion of the moved map copy, and tests/test_icp_align.py's
+# bars (:52-55)
+ICP_ROT_DEG, ICP_T_M = 5.0, 0.2
+ICP_ROT_ERR_RAD, ICP_T_ERR_M, ICP_RMS, ICP_INLIER = 0.01, 0.02, 0.02, 0.9
+# 12d: the sessions' processes, and their time limit
+SESSION_TIMEOUT_S = 300
+
+
+@contextlib.contextmanager
+def nccl_group():
+    """A `torch.distributed` NCCL group of world size 1 (this process as
+    rank 0), rendezvousing through a file store under build/; one
+    all-reduce sets up its communicator before the timed solves."""
+    import torch
+    import torch.distributed as dist
+
+    store = ROOT / "build" / f"nccl_store_{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    try:
+        dist.all_reduce(torch.zeros(1, device="cuda"))
+        torch.cuda.synchronize()
+        yield
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
+def timed_solve(fn, n_iters: int, warm: bool = False):
+    """(result, ms per iteration) of a call of `fn` ending in a device
+    synchronize; with `warm`, after a first call as a warm-up (each
+    solver's first run: its later runs share the warmed-up libraries)."""
+    import torch
+
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3 / n_iters
+
+
+def _max_diff(a, b) -> float:
+    return float((a - b).abs().max())
+
+
+def centre_diff_in_scale(R_a, t_a, R_b, t_b):
+    """Camera centres of two BA solutions with keyframe 0 fixed, compared
+    after the one scale about keyframe 0's centre that the window leaves
+    free (only keyframe 0 is fixed, so the solution is defined up to it).
+    Returns (max centre difference in m, that scale)."""
+    ca = -(R_a.transpose(1, 2) @ t_a[..., None])[..., 0]
+    cb = -(R_b.transpose(1, 2) @ t_b[..., None])[..., 0]
+    da, db = ca - ca[0], cb - cb[0]
+    s = float((da * db).sum() / (db * db).sum())
+    return float((da - s * db).abs().max()), s
+
+
+def mesh_ba(dev, mm):
+    """12a, the landmark-sharded BA on MULTISESSION.json's window."""
+    from orb_slam3_ros2_tpu_torch.backend import ba as ba_mod
+    from orb_slam3_ros2_tpu_torch.parallel import sharded_ba
+    from orb_slam3_ros2_tpu_torch.tools import multisession as msn
+
+    p = ba_mod.BAProblem(*(f.to(dev) for f in msn.ba_window()))
+    cam, n_it = msn.BA_CAMERA, 10
+    # the one-device solver with the sharded solver's chi2 refresh period
+    ref, ref_ms = timed_solve(lambda: ba_mod.bundle_adjust(
+        p, *cam, n_iters=n_it, reclassify_every=sharded_ba.REFRESH_EVERY),
+        n_it, warm=True)
+    runs = {"one-device": (ref, ref_ms)}
+
+    def sharded(mesh):
+        return timed_solve(lambda: sharded_ba.make_sharded_ba(
+            mesh, *cam, n_iters=n_it)(p), n_it)
+
+    with nccl_group():
+        runs["1 shard (NCCL)"] = sharded(mm.make_mesh(1, devices=[dev]))
+    runs[f"{MESH_SHARDS} shards"] = sharded(
+        mm.make_mesh(devices=[dev] * MESH_SHARDS))
+    out = {}
+    for name, (r, ms_it) in runs.items():
+        d_c, s = centre_diff_in_scale(r.R, r.t, ref.R, ref.t)
+        d = out[name] = dict(
+            ms_per_iter=ms_it, cost=float(r.cost), dR=_max_diff(r.R, ref.R),
+            dt_raw=_max_diff(r.t, ref.t), dcentre_in_scale=d_c, scale=s)
+        print(f"sharded BA 48x16384, {name}: {ms_it:.3f} ms/iter, cost "
+              f"{float(r.cost):.2f} (JAX CPU mesh {MULTISESSION_BA_COST}); "
+              f"vs one-device: dR {d['dR']:.2e}, dt {d['dt_raw']:.2e} raw, "
+              f"centres {d_c:.2e} m after scale {s:.6f}")
+        require(abs(float(r.cost) - MULTISESSION_BA_COST)
+                <= BA_COST_REL * MULTISESSION_BA_COST,
+                f"sharded BA ({name}): cost {float(r.cost)} vs the JAX CPU "
+                f"mesh's {MULTISESSION_BA_COST}")
+        require(d["dR"] <= BA_R_ATOL and d_c <= BA_T_ATOL
+                and abs(float(r.cost) - float(ref.cost))
+                <= BA_COST_RTOL * abs(float(ref.cost)),
+                f"sharded BA ({name}) vs bundle_adjust: {d}")
+    return out
+
+
+def mesh_pose_graph(dev, mm):
+    """12a, the edge-sharded pose graph on the city graph."""
+    import torch
+    from orb_slam3_ros2_tpu_torch.loop import pose_graph as pg
+    from orb_slam3_ros2_tpu_torch.parallel import sharded_pose_graph as spg
+    from orb_slam3_ros2_tpu_torch.tools import multisession as msn
+
+    (R0, t0, s0, ei, ej, Rm, tm, sm, fixed, Rg, tg,
+     n_cross) = msn.build_city_graph()
+    K, n_it = len(R0), 15
+
+    def args(n):
+        ei2, ej2, Rm2, tm2, sm2, valid = msn.pad_edges(n, ei, ej, Rm, tm, sm)
+        return tuple(torch.as_tensor(np.asarray(a), device=dev) for a in (
+            R0, t0, s0, ei2.astype(np.int32), ej2.astype(np.int32), Rm2,
+            tm2, sm2, valid, fixed))
+
+    a1, a8 = args(1), args(MESH_SHARDS)
+    ref, ref_ms = timed_solve(
+        lambda: pg.optimize_pose_graph(*a1, n_iters=n_it), n_it, warm=True)
+    runs = {"replicated": (ref, ref_ms)}
+
+    def sharded(mesh, a):
+        return timed_solve(lambda: spg.make_sharded_pose_graph(
+            mesh, K, n_iters=n_it)(*a), n_it)
+
+    with nccl_group():
+        runs["1 shard (NCCL)"] = sharded(mm.make_mesh(1, devices=[dev]), a1)
+    runs[f"{MESH_SHARDS} shards"] = sharded(
+        mm.make_mesh(devices=[dev] * MESH_SHARDS), a8)
+    rmse0 = msn.centers_rmse(R0, t0 / s0[:, None], Rg, tg)
+    out = dict(keyframes=K, edges=len(ei), cross_session_edges=n_cross,
+               rmse_before_m=rmse0)
+    for name, (r, ms_it) in runs.items():
+        rmse = msn.centers_rmse(r.R.cpu().numpy(),
+                                (r.t / r.s[:, None]).cpu().numpy(), Rg, tg)
+        d = dict(ms_per_iter=ms_it, rmse_after_m=rmse,
+                 dR=_max_diff(r.R, ref.R), dt=_max_diff(r.t, ref.t),
+                 ds=_max_diff(r.s, ref.s))
+        out[name] = d
+        print(f"sharded pose graph {K} kf / {len(ei)} edges, {name}: "
+              f"{ms_it:.3f} ms/iter, rmse {rmse0:.4f} -> {rmse:.5f} m (JAX "
+              f"CPU mesh {MULTISESSION_PG_RMSE_M}); vs replicated dR "
+              f"{d['dR']:.2e} dt {d['dt']:.2e} ds {d['ds']:.2e}")
+        require(abs(rmse - MULTISESSION_PG_RMSE_M)
+                <= PG_RMSE_REL * MULTISESSION_PG_RMSE_M,
+                f"pose graph ({name}): rmse {rmse} against "
+                f"{MULTISESSION_PG_RMSE_M}")
+        require(d["dR"] <= PG_R_ATOL and d["dt"] <= PG_T_ATOL
+                and d["ds"] <= PG_S_ATOL,
+                f"sharded pose graph ({name}) vs replicated: {d}")
+    return out
+
+
+def vi_clip(dev, K=6, L=16 * MESH_SHARDS, seed=11):
+    """tests/test_sharded_vi_ba.py's clip (`_vi_problem`), built with the
+    port's synthetic scene, IMU and preintegration."""
+    import torch
+    from orb_slam3_ros2_tpu_torch.backend import ba as ba_mod
+    from orb_slam3_ros2_tpu_torch.geom import lie
+    from orb_slam3_ros2_tpu_torch.imu import preintegration as pre_mod
+    from orb_slam3_ros2_tpu_torch.io import synthetic
+
+    sc = synthetic.make_scene(n_frames=K, n_points=L, noise_px=0.3, seed=seed,
+                              fps=2.0)
+    traj = synthetic.default_trajectory(seed=seed + 1)
+    ts = sc.timestamps
+    true_bg = np.array([0.015, -0.01, 0.02])
+    f32 = torch.float32
+    pres = []
+    for i in range(K - 1):
+        _, gyro, acc = synthetic.make_imu(
+            traj, ts[i], ts[i + 1], rate=200.0, gyro_bias=true_bg,
+            gyro_noise=1e-4, acc_noise=1e-3, seed=i)
+        n = len(gyro)
+        pres.append(pre_mod.preintegrate(
+            torch.as_tensor(gyro, dtype=f32, device=dev),
+            torch.as_tensor(acc, dtype=f32, device=dev),
+            torch.full((n,), 1.0 / 200.0, dtype=f32, device=dev),
+            torch.ones(n, dtype=torch.bool, device=dev)))
+    pres = pre_mod.stack(pres)
+    h = 1e-4
+    v_gt = np.stack([(traj.position(t + h) - traj.position(t - h)) / (2 * h)
+                     for t in ts])
+    rng = np.random.default_rng(0)
+    xi = rng.normal(0, 0.015, (K, 6)).astype(np.float32)
+    xi[0] = 0.0
+
+    def T(a):
+        return torch.as_tensor(np.asarray(a), dtype=f32, device=dev)
+
+    R0, t0 = lie.se3_retract(T(sc.R_cw), T(sc.t_cw), T(xi))
+    X0 = T(sc.X + rng.normal(0, 0.04, sc.X.shape))
+    v_init = T(v_gt + rng.normal(0, 0.1, v_gt.shape))
+    fixed = torch.zeros(K, dtype=torch.bool, device=dev)
+    fixed[0] = True
+    p = ba_mod.BAProblem(R=R0, t=t0, X=X0, uv=T(sc.uv), w=T(sc.vis),
+                         fixed=fixed,
+                         point_valid=torch.ones(L, dtype=torch.bool,
+                                                device=dev))
+    return sc, p, pres, v_init, v_gt, true_bg
+
+
+def mesh_vi_ba(dev, mm):
+    """12a, the sharded VI BA on tests/test_sharded_vi_ba.py's clip, with
+    the gravity direction fixed (that test's run) and optimized."""
+    import torch
+    from orb_slam3_ros2_tpu_torch.backend import vi_ba
+    from orb_slam3_ros2_tpu_torch.parallel import sharded_vi_ba as svi
+
+    sc, p, pres, v_init, v_gt, true_bg = vi_clip(dev)
+    cam, n_it = (sc.fx, sc.fy, sc.cx, sc.cy), 10
+    pri = dict(prior_bg=1e1, prior_ba=1e0)  # test_sharded_vi_ba.py:60
+    z = torch.zeros(3, device=dev)
+    err0 = float(np.linalg.norm(p.t.cpu().numpy() - sc.t_cw, axis=-1).mean())
+    out = {}
+    for grav in (False, True):
+        ref, ref_ms = timed_solve(lambda: vi_ba.vi_bundle_adjust(
+            p, pres, v_init, z, z, *cam, n_iters=n_it, opt_gravity=grav,
+            **pri), n_it, warm=not grav)
+        runs = {"one-device": (ref, ref_ms)}
+
+        def sharded(mesh):
+            return timed_solve(lambda: svi.make_sharded_vi_ba(
+                mesh, *cam, n_iters=n_it, opt_gravity=grav, **pri)(
+                    p, pres, v_init, z, z), n_it)
+
+        with nccl_group():
+            runs["1 shard (NCCL)"] = sharded(mm.make_mesh(1, devices=[dev]))
+        runs[f"{MESH_SHARDS} shards"] = sharded(
+            mm.make_mesh(devices=[dev] * MESH_SHARDS))
+        tag = "gravity optimized" if grav else "gravity fixed"
+        for name, (r, ms_it) in runs.items():
+            t_err = float(np.linalg.norm(r.t.cpu().numpy() - sc.t_cw,
+                                         axis=-1).mean())
+            v_err = float(np.linalg.norm(r.v.cpu().numpy() - v_gt,
+                                         axis=-1).mean())
+            bg_err = float(np.abs(r.bg.cpu().numpy() - true_bg).max())
+            d = dict(ms_per_iter=ms_it, t_err=t_err, v_err=v_err,
+                     bg_err=bg_err, thg=r.thg.cpu().numpy().tolist(),
+                     dthg=_max_diff(r.thg, ref.thg), dR=_max_diff(r.R, ref.R),
+                     dt=_max_diff(r.t, ref.t), cost=float(r.cost))
+            out[f"{name}, {tag}"] = d
+            print(f"sharded VI BA K=6 L={p.X.shape[0]}, {name}, {tag}: "
+                  f"{ms_it:.3f} ms/iter, t err {t_err:.4f} (before "
+                  f"{err0:.4f}), v err {v_err:.4f}, bg err {bg_err:.2e}, "
+                  f"thg {d['thg']} (one-device "
+                  f"{ref.thg.cpu().numpy().tolist()}); vs one-device dR "
+                  f"{d['dR']:.2e} dt {d['dt']:.2e}")
+            # tests/test_sharded_vi_ba.py:66-71
+            require(np.isfinite(d["cost"]) and t_err < err0 and t_err < 2e-2
+                    and v_err < 5e-2 and bg_err <= 5e-3,
+                    f"sharded VI BA ({name}, {tag}): {d}")
+            require(d["dR"] <= BA_R_ATOL and d["dt"] <= BA_T_ATOL
+                    and abs(d["cost"] - float(ref.cost))
+                    <= BA_COST_RTOL * abs(float(ref.cost)),
+                    f"sharded VI BA ({name}, {tag}) vs one-device: {d}")
+            if grav:
+                require(float(r.thg.abs().max()) > 0.0
+                        and d["dthg"] <= VI_THG_ATOL,
+                        f"sharded VI BA ({name}): thg {d['thg']} vs the "
+                        f"one-device {ref.thg.cpu().numpy().tolist()}")
+    return out
+
+
+def block_problems(dev, B=4, K=6, L=64):
+    """tests/test_block_ba.py's four map blocks (`_one_problem`)."""
+    import torch
+    from orb_slam3_ros2_tpu_torch.backend import ba as ba_mod
+    from orb_slam3_ros2_tpu_torch.geom import lie
+    from orb_slam3_ros2_tpu_torch.io import synthetic
+
+    scenes, probs = [], []
+    for seed in range(B):
+        sc = synthetic.make_scene(n_frames=K, n_points=L, noise_px=0.3,
+                                  seed=seed, fps=2.0)
+        rng = np.random.default_rng(seed)
+        xi = rng.normal(0, 0.02, (K, 6)).astype(np.float32)
+        xi[:2] = 0.0
+
+        def T(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                   device=dev)
+
+        R0, t0 = lie.se3_retract(T(sc.R_cw), T(sc.t_cw), T(xi))
+        fixed = torch.zeros(K, dtype=torch.bool, device=dev)
+        fixed[:2] = True
+        scenes.append(sc)
+        probs.append(ba_mod.BAProblem(
+            R=R0, t=t0, X=T(sc.X + rng.normal(0, 0.05, sc.X.shape)),
+            uv=T(sc.uv), w=T(sc.vis), fixed=fixed,
+            point_valid=torch.ones(L, dtype=torch.bool, device=dev)))
+    return scenes, probs
+
+
+def mesh_block_ba(dev, mm):
+    """12a, the block x landmark BA on a (kf, lm) = (2, 4) mesh of 8
+    shards, each block against the 1-D solver over 4 shards alone."""
+    import torch
+    from orb_slam3_ros2_tpu_torch.backend import ba as ba_mod
+    from orb_slam3_ros2_tpu_torch.parallel import block_ba, sharded_ba
+
+    scenes, probs = block_problems(dev)
+    sc0, n_it = scenes[0], 10
+    cam = (sc0.fx, sc0.fy, sc0.cx, sc0.cy)
+    batched = ba_mod.BAProblem(*(torch.stack(f) for f in zip(*probs)))
+    m2d = mm.make_mesh(MESH_SHARDS, axis_names=(mm.KF_AXIS, mm.LM_AXIS),
+                       devices=[dev] * MESH_SHARDS)
+    out_b, ms_it = timed_solve(lambda: block_ba.make_block_sharded_ba(
+        m2d, *cam, n_iters=n_it)(block_ba.shard_block_problem(batched, m2d)),
+        n_it, warm=True)
+    m4 = mm.make_mesh(devices=[dev] * 4)
+    errs, diffs = [], []
+    for b, (sc, p) in enumerate(zip(scenes, probs)):
+        one = sharded_ba.make_sharded_ba(m4, *cam, n_iters=n_it)(p)
+        diffs.append(_max_diff(out_b.t[b], one.t))
+        errs.append(float(np.linalg.norm(out_b.t[b].cpu().numpy() - sc.t_cw,
+                                         axis=-1).mean()))
+    out = dict(mesh=m2d.shape, ms_per_iter=ms_it, t_err=errs,
+               dt_vs_per_block=diffs)
+    print(f"block BA {len(probs)} blocks on {m2d.shape}: {ms_it:.3f} "
+          f"ms/iter, t err {[round(e, 5) for e in errs]}, vs the per-block "
+          f"solver dt {[f'{d:.1e}' for d in diffs]}")
+    require(bool(torch.isfinite(out_b.cost).all()),
+            "block BA: non-finite cost")
+    require(max(diffs) <= BLOCK_T_ATOL and max(errs) < 8e-3,
+            f"block BA: {out}")
+    return out
+
+
+def mesh_corridor(dev, mm, record, corridor):
+    """12b: phase 9b's corridor loop with the System's global BA over a
+    mesh of one shard on the NCCL group, every kernel counter from 0
+    around it; the match and pose calls of the loop closure are recorded
+    and held against their plain versions after the counts are read."""
+    from orb_slam3_ros2_tpu_torch.runtime import system as sysm
+    from orb_slam3_ros2_tpu_torch.tools import system_run as sr
+
+    for fn in _counters():
+        fn.launches = 0
+    with nccl_group(), recording(sysm.System, "_try_close_loop") as calls:
+        r, _ = sr.run_corridor_loop(dev, mesh=mm.make_mesh(1, devices=[dev]))
+    r["launches"] = dict(zip(COUNTED, (fn.launches for fn in _counters())))
+    d = max(float(np.abs(np.subtract(r["centres"][k],
+                                     corridor["centres"][k])).max())
+            for k in r["centres"])
+    r["centre_diff_no_mesh_m"] = d
+    print(f"corridor loop over a mesh: loops closed after keyframes 17, 18: "
+          f"{r['loops_closed_after']}; mesh solves {r['mesh_solves']}; ms of "
+          f"the calls {[round(x, 2) for x in r['call_ms']]}; max centre diff "
+          f"from phase 9b's run {d:.3g} m; launches {r['launches']}")
+    require(r["loops_closed_after"] == [0, 1] and r["last_loop_kf"] == 18,
+            f"corridor over a mesh: loops closed {r['loops_closed_after']}")
+    require(r["mesh_solves"] >= 1, "corridor over a mesh: no mesh solve")
+    require(r["finite"], "corridor over a mesh: non-finite map")
+    require(d <= CORRIDOR_CENTRE_M,
+            f"corridor over a mesh: centres {d} m from phase 9b's")
+    require(calls["match"], "corridor over a mesh: no match call recorded")
+    r["checked"] = check_recorded(calls, "corridor over a mesh")
+    print(f"corridor over a mesh: kernels against their plain versions: "
+          f"{r['checked']}")
+    add_launches(record, r["launches"])
+    return r
+
+
+def mesh_icp(dev, cloud):
+    """12c: phase 4's map cloud against a copy moved by a known motion."""
+    import torch
+    from orb_slam3_ros2_tpu_torch.atlas import icp_align
+    from orb_slam3_ros2_tpu_torch.geom import lie
+
+    axis = np.array([0.3, -0.5, 0.8])
+    axis /= np.linalg.norm(axis)
+    R_gt = lie.so3_exp(torch.as_tensor(
+        axis * np.deg2rad(ICP_ROT_DEG))).numpy().astype(np.float64)
+    t_dir = np.array([0.6, -0.4, 0.7])
+    t_gt = ICP_T_M * t_dir / np.linalg.norm(t_dir)
+    src = np.asarray(cloud, np.float64)
+    dst = src @ R_gt.T + t_gt
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    T, stats = icp_align.align_maps(src, dst, device=dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    dR = T[:3, :3] @ R_gt.T
+    rot_err = float(np.arccos(np.clip((np.trace(dR) - 1) / 2, -1.0, 1.0)))
+    t_err = float(np.linalg.norm(T[:3, 3] - t_gt))
+    out = dict(points=len(src), rot_err_rad=rot_err, t_err_m=t_err,
+               ms=ms, **stats)
+    print(f"ICP: {len(src)} map points moved by {ICP_ROT_DEG} deg and "
+          f"{ICP_T_M} m: rotation error {rot_err:.2e} rad, translation "
+          f"error {t_err:.2e} m, rms {stats['rms']:.4f}, inliers "
+          f"{stats['inlier_frac']:.3f}; align_maps {ms:.1f} ms")
+    require(rot_err < ICP_ROT_ERR_RAD and t_err < ICP_T_ERR_M
+            and stats["rms"] < ICP_RMS and stats["inlier_frac"] > ICP_INLIER,
+            f"ICP: {out}")
+    return out
+
+
+def run_ranks(module: str, n: int, extra) -> list:
+    """Start n processes of `python -m module` on the card, gloo over a
+    file store under build/, wait, and return each rank's report (its last
+    JSON line). Every process is stopped before this returns."""
+    work = ROOT / "build" / f"session_{module.rsplit('.', 1)[-1]}"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", module, "--process-id", str(r),
+         "--num-processes", str(n), "--coordinator",
+         f"file://{work / 'store'}", "--out", str(work / "report.json"),
+         "--device", "cuda", "--backend", "gloo", *extra],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append((p.communicate(timeout=SESSION_TIMEOUT_S),
+                         p.returncode))
+    except subprocess.TimeoutExpired:
+        raise PhaseError(f"{module}: ranks past {SESSION_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    reports = []
+    for r, ((out, err), rc) in enumerate(outs):
+        lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+        require(rc == 0 and lines, f"{module} rank {r} failed (rc {rc}):\n"
+                f"{out[-2000:]}\n{err[-3000:]}")
+        reports.append(json.loads(lines[-1]))
+    return reports
+
+
+def mesh_sessions():
+    """12d: the two-process session and the four-process live session on
+    the one card (gloo, every rank on cuda:0), each rank tracking with the
+    kernels; tests/test_distributed_session.py's and test_live_session.py's
+    bars."""
+    out = {}
+    t0 = time.perf_counter()
+    reps = run_ranks(f"{PKG}.parallel.distributed_session", 2,
+                     ("--local-devices", "4"))
+    out["distributed_session"] = dict(wall_s=time.perf_counter() - t0,
+                                      ranks=reps)
+    for r in reps:
+        print(f"distributed session rank {r['process_id']}: backend "
+              f"{r['backend']}, {r['global_devices']} shards, tracking "
+              f"{r['track_ms_per_frame']} ms/frame, {r['n_kf_local']} local "
+              f"keyframes, {r['n_kf_merged']} merged, {r['n_maps_welded']} "
+              f"maps welded, keyframe ATE merged {r['kf_ate_merged_m']} m, "
+              f"refined {r['kf_ate_refined_m']} m; launches {r['launches']}")
+    r0 = reps[0]
+    require(r0["n_maps_welded"] == 2, f"session: {r0}")
+    require(r0["n_kf_merged"] > r0["n_kf_local"], f"session: {r0}")
+    require(r0["kf_ate_refined_m"] < 0.08
+            and r0["kf_ate_refined_m"] <= r0["kf_ate_merged_m"] + 0.01,
+            f"session: keyframe ATE {r0}")
+    require(len({r["kf_ate_refined_m"] for r in reps}) == 1,
+            f"session: the ranks' maps differ: {reps}")
+    require(all(r["launches"]["frontend_packed"] > 0 for r in reps),
+            f"session: a rank did not extract with the kernel: {reps}")
+    t0 = time.perf_counter()
+    live = run_ranks(f"{PKG}.parallel.live_session", 4,
+                     ("--local-devices", "2", "--n-frames", "100"))
+    out["live_session"] = dict(wall_s=time.perf_counter() - t0, ranks=live)
+    total_lm = sum(r["n_lm_local"] for r in live)
+    for r in live:
+        print(f"live session rank {r['process_id']}: backend {r['backend']}, "
+              f"{r['global_devices']} shards, tracking "
+              f"{r['track_ms_per_frame']} ms/frame, first weld at frame "
+              f"{min(r['weld_frames'], default=None)} of "
+              f"{r['frames_tracked']}, {r['n_edges']} edges, "
+              f"{r['n_connected_hosts']} hosts connected, {r['n_lm_local']} "
+              f"landmarks, global keyframe ATE {r['global_kf_ate_m']} m; "
+              f"launches {r['launches']}")
+        require(r["n_edges"] >= 1 and r["weld_frames"]
+                and min(r["weld_frames"]) <= r["frames_tracked"] - 5,
+                f"live session: no weld mid-run: {r}")
+        require(r["n_connected_hosts"] == 4, f"live session: {r}")
+        require(r["n_lm_local"] <= 0.5 * total_lm, f"live session: {r}")
+        require(r["global_kf_ate_m"] == live[0]["global_kf_ate_m"],
+                f"live session: the ranks' results differ: {live}")
+    require(live[0]["global_kf_ate_m"] < 0.6, f"live session: {live[0]}")
+    return out
+
+
+def run_mesh(dev, record, cloud, corridor):
+    """Phase 12: the sharded solvers at full width (12a), System(mesh=...)
+    on phase 9b's corridor (12b), ICP on phase 4's map (12c) and the
+    multi-process sessions (12d). Every bar raises PhaseError."""
+    from orb_slam3_ros2_tpu_torch.parallel import mesh as mm
+
+    t0 = time.perf_counter()
+    out = dict(sharded_ba=mesh_ba(dev, mm),
+               sharded_pose_graph=mesh_pose_graph(dev, mm),
+               sharded_vi_ba=mesh_vi_ba(dev, mm),
+               block_ba=mesh_block_ba(dev, mm),
+               corridor=mesh_corridor(dev, mm, record, corridor),
+               icp=mesh_icp(dev, cloud))
+    out["solvers_s"] = time.perf_counter() - t0
+    out.update(mesh_sessions())
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"mesh: phase 12 took {out['phase_s']:.1f} s ({out['solvers_s']:.1f}"
+          f" s before the sessions); card {card_line()}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1890,6 +2448,7 @@ def main() -> int:
     euroc_vi = run_euroc_vi(dev, record)
     vi_rigs = run_vi_rigs(dev, record)
     replays = run_replay(dev, record, system, clips["tum1_rgbd"])
+    mesh = run_mesh(dev, record, system.pop("map_cloud"), loopy["corridor"])
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "wrapper_ms")
@@ -1908,7 +2467,7 @@ def main() -> int:
                       "fisheye_stereo": rigs["tumvi_stereo"],
                       "euroc_reloc": reloc, "synth_loopy": loopy,
                       "euroc_vi": euroc_vi, "vi_rigs": vi_rigs,
-                      "replay": replays}))
+                      "replay": replays, "mesh": mesh}))
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,7 @@ numpy-only pieces copied verbatim from `orb_slam3_ros2_tpu/io/synthetic.py`
 `_texture`, `render_sequence`: lines 154-251; the textured room and
 `render_room_sequence_kb8`: lines 259-322, 355-363, 435-545;
 `_render_planes`, `render_room_sequence`: lines 325-352, 366-432;
+`Scene`, `make_scene`: lines 75-146;
 `umeyama_scale`, `ate_rmse`: lines 606-645; `GRAVITY`, `make_imu`: lines
 27, 548-603), and the leave-and-return
 trajectory of the loop-closing clip (`_WaypointTrajectory`,
@@ -68,6 +69,80 @@ def default_trajectory(seed: int = 0, scale: float = 1.0) -> Trajectory:
         freq_t=rng.uniform(0.05, 0.15, 3),
         amp_r=rng.uniform(0.05, 0.15, 3),
         freq_r=rng.uniform(0.05, 0.2, 3),
+    )
+
+
+@dataclasses.dataclass
+class Scene:
+    X: np.ndarray  # (L, 3) world landmarks
+    R_cw: np.ndarray  # (K, 3, 3) camera-from-world rotations (groundtruth)
+    t_cw: np.ndarray  # (K, 3)
+    uv: np.ndarray  # (K, L, 2) pixel observations (noisy)
+    vis: np.ndarray  # (K, L) bool visibility
+    timestamps: np.ndarray  # (K,)
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    width: int = 752
+    height: int = 480
+
+
+def make_scene(
+    n_frames: int = 12,
+    n_points: int = 300,
+    noise_px: float = 0.5,
+    outlier_frac: float = 0.0,
+    seed: int = 0,
+    fps: float = 20.0,
+    fx: float = 458.0,
+    fy: float = 457.0,
+    cx: float = 367.0,
+    cy: float = 248.0,
+    width: int = 752,
+    height: int = 480,
+) -> Scene:
+    """Random landmarks in a box in front of the trajectory; full projections."""
+    rng = np.random.default_rng(seed)
+    traj = default_trajectory(seed=seed + 1)
+    ts = np.arange(n_frames) / fps
+
+    X = np.stack(
+        [
+            rng.uniform(-4.0, 4.0, n_points),
+            rng.uniform(-3.0, 3.0, n_points),
+            rng.uniform(4.0, 10.0, n_points),
+        ],
+        axis=-1,
+    )
+
+    R_wb, p_wb = traj.pose_wb(ts)  # body == camera here
+    R_cw = np.swapaxes(R_wb, -1, -2)
+    t_cw = -np.einsum("kij,kj->ki", R_cw, p_wb)
+
+    x_c = np.einsum("kij,lj->kli", R_cw, X) + t_cw[:, None]
+    z = x_c[..., 2]
+    uv = np.stack(
+        [fx * x_c[..., 0] / z + cx, fy * x_c[..., 1] / z + cy], axis=-1
+    )
+    vis = (
+        (z > 0.2)
+        & (uv[..., 0] >= 0)
+        & (uv[..., 0] < width)
+        & (uv[..., 1] >= 0)
+        & (uv[..., 1] < height)
+    )
+    uv = uv + rng.normal(0, noise_px, uv.shape)
+    if outlier_frac > 0:
+        out = rng.random(vis.shape) < outlier_frac
+        uv = np.where(
+            out[..., None],
+            rng.uniform(0, [width, height], uv.shape),
+            uv,
+        )
+    return Scene(
+        X=X, R_cw=R_cw, t_cw=t_cw, uv=uv.astype(np.float32), vis=vis,
+        timestamps=ts, fx=fx, fy=fy, cx=cx, cy=cy, width=width, height=height,
     )
 
 

@@ -33,9 +33,13 @@ inertial BA at FULL_VIBA_AT intervals and the scale refinement. Loop
 closing runs the full inertial BA instead of the visual global BA once the
 IMU is initialized, and its Sim3 keeps the scale.
 
-What this slice leaves out raises `NotImplementedError` naming the ROADMAP
-item it waits on (`ROADMAP.md` §1): a device mesh (item 9) and the
-pipelined mode (item 10).
+With a shard mesh (`System(mesh=parallel.mesh.make_mesh(...))`) the
+global BA after a loop closure runs landmark-sharded over the mesh
+(`parallel/distributed_map.distributed_map_ba`); `n_mesh_solves` counts
+those solves. `kf_remap_listeners` are called as `cb(remap, old_n_kf)`
+after a keyframe compaction (`parallel/live_session.py` keeps per-keyframe
+records by slot). The pipelined mode raises `NotImplementedError` naming
+the ROADMAP item it waits on (`ROADMAP.md` §1 item 10).
 
 `System.tracer` (`utils/tracing.StageTracer`) times the JAX System's stages
 under the same names, where the port has the stage: `extract`,
@@ -77,6 +81,7 @@ from orb_slam3_ros2_tpu_torch.loop import dbow2 as dbow2_mod
 from orb_slam3_ros2_tpu_torch.loop import vocab as vocab_mod
 from orb_slam3_ros2_tpu_torch.models import cameras as cam_mod
 from orb_slam3_ros2_tpu_torch.ops import matcher
+from orb_slam3_ros2_tpu_torch.parallel import distributed_map
 from orb_slam3_ros2_tpu_torch.utils import tracing
 
 MIN_TRACK_INLIERS = 15  # System.MIN_TRACK_INLIERS
@@ -340,8 +345,9 @@ class System:
         self.sensor = Sensor(sensor)
         if pipelined:
             _not_ported("the pipelined mode", "10")
-        if mesh is not None:
-            _not_ported("a device mesh (the sharded global BA)", "9")
+        # a shard mesh (`parallel/mesh.py`): the global BA then runs
+        # landmark-sharded over it (`parallel/distributed_map.py`)
+        self.mesh = mesh
         self._metric_scale = self.sensor in METRIC_MODES
         self.settings = settings_mod.load_settings(settings_path)
         self.use_viewer = use_viewer
@@ -468,6 +474,9 @@ class System:
         # samples beyond an interval's 4 * _pre_cap rows, which the JAX
         # System drops without a word (`_finish_kf_preint`, :2250)
         self.dropped_imu_samples = 0
+        self.n_mesh_solves = 0  # global BAs run over the shard mesh
+        # callbacks invoked as cb(remap, old_n_kf) after keyframe compaction
+        self.kf_remap_listeners: List = []
 
     # ---------------------------------------------------------------- atlas
 
@@ -1115,8 +1124,7 @@ class System:
         keyframe times, the BoW rows (which follow their keyframes' slots;
         document counts recounted), the keyframe velocities, the last loop
         keyframe, the loop consistency groups and the inter-keyframe
-        preintegrations (the JAX version's listeners belong to a part not
-        ported)."""
+        preintegrations; then the `kf_remap_listeners`."""
         kept = [k for k in range(old_n_kf) if remap[k] >= 0]
         self.kf_times = [self.kf_times[k] for k in kept
                          if k < len(self.kf_times)]
@@ -1155,6 +1163,10 @@ class System:
                     p = pre_mod.merge(p, sg)
                 new_pre.append(p)
             self.kf_preints = new_pre
+        # external subscribers (parallel/live_session.py keeps per-keyframe
+        # BoW rows, feature records and weld anchors by slot)
+        for cb in self.kf_remap_listeners:
+            cb(remap, old_n_kf)
 
     # ------------------------------------------------------------ loop close
 
@@ -1270,13 +1282,23 @@ class System:
         return consistent
 
     def _run_global_ba(self, n_iters: int = 8):
-        """`tracking.global_ba` over the live keyframes."""
+        """`tracking.global_ba` over the live keyframes; with a mesh, the
+        same window (the live keyframes padded to a power of 2, keyframe 0
+        fixed) solved landmark-sharded over it (JAX :2033-2047)."""
         n_kf = int(self.map.n_kf)
         if n_kf < 2:
             return
         cam = self.cam
-        self.map = trk.global_ba(self.map, n_kf, cam.fx, cam.fy, cam.cx,
-                                 cam.cy, n_iters=n_iters)
+        if self.mesh is not None:
+            ids, fix = trk.global_ba_window(n_kf, self.map_cfg.max_kf,
+                                            self.device)
+            self.map = distributed_map.distributed_map_ba(
+                self.map, ids, fix, self.mesh, cam.fx, cam.fy, cam.cx,
+                cam.cy, n_iters=n_iters)
+            self.n_mesh_solves += 1
+        else:
+            self.map = trk.global_ba(self.map, n_kf, cam.fx, cam.fy, cam.cx,
+                                     cam.cy, n_iters=n_iters)
         self._mark_frame_ref_dirty()
 
     def _try_merge_maps(self, new_kf: int, feats) -> bool:

@@ -636,17 +636,18 @@ def aliased_corridor(slam: sysm.System, n_kf: int = 18,
     return feats
 
 
-def run_corridor_loop(device) -> Tuple[dict, sysm.System]:
+def run_corridor_loop(device, mesh=None) -> Tuple[dict, sysm.System]:
     """An in-map loop closure through `System._try_close_loop` on the
     corridor with keyframes 17 and 18 re-seeing keyframe 2's room:
     keyframe 17's detection starts the temporal consistency, keyframe 18's
     is verified (Sim3), corrected (essential graph), fused across the seam
-    and polished by the global BA. Returns (result, System): loops closed
-    after each call, ms of each call, and the corrected centres of
-    keyframes 2, 17 and 18."""
+    and polished by the global BA (over `mesh`, a `parallel.mesh.Mesh`,
+    when given). Returns (result, System): loops closed after each call,
+    ms of each call, and the corrected centres of keyframes 2, 17 and
+    18."""
     device = torch.device(device)
     slam = sysm.System(None, str(REPO / CORRIDOR_SETTINGS),
-                       sysm.Sensor.MONOCULAR, device=device)
+                       sysm.Sensor.MONOCULAR, mesh=mesh, device=device)
     feats = aliased_corridor(slam, n_kf=19, aliased_kfs=(17, 18))
     closed, call_ms = [], []
     for k in (17, 18):
@@ -661,6 +662,7 @@ def run_corridor_loop(device) -> Tuple[dict, sysm.System]:
                for k in (2, 17, 18)}
     return dict(loops_closed_after=closed, call_ms=call_ms,
                 last_loop_kf=slam.last_loop_kf, centres=centres,
+                mesh_solves=slam.n_mesh_solves,
                 finite=bool(torch.isfinite(m.kf_t).all()
                             and torch.isfinite(m.lm_X).all())), slam
 

@@ -110,8 +110,7 @@ def test_port_e2e_mono_tracks_and_ate(rendered, two_threads,
     assert all(isinstance(t, float) for t in sys_.kf_times)
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(pipelined=True), "10"), (dict(mesh=object()), "9")])
+@pytest.mark.parametrize("kwargs,item", [(dict(pipelined=True), "10")])
 def test_left_out_parts_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         System(None, SETTINGS, device="cpu", **kwargs)

@@ -29,6 +29,10 @@ for name in names:
 assert not any(k in ("jax", "orb_slam3_ros2_tpu")
                or k.startswith(("jax.", "orb_slam3_ros2_tpu."))
                for k, v in sys.modules.items() if v is not None)
+# importing parallel/ starts no process group
+import torch.distributed as dist
+assert not (dist.is_available() and dist.is_initialized())
+assert "orb_slam3_ros2_tpu_torch.parallel.live_session" in names
 
 from orb_slam3_ros2_tpu_torch.atlas import map_state as ms
 from orb_slam3_ros2_tpu_torch.frontend import extractor as ex
