@@ -38,10 +38,15 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ratio 0.9, mutual), exact against its plain version, with its device
    time, bound and wrapper time.
 2b. Per-level kernels: `fast_nms`, `blur7`, `frontend_pass` and
-   `frontend_pass_lite` on each of the 8 levels of a 752x480 frame's
-   pyramid, against their plain versions at the JAX oracle tests'
-   tolerances, and one call of each timed on level 0; `blur7` beside
-   `conv2d` with the same 7x7 taps (its library yardstick).
+   `frontend_pass_lite` on each of the 8 levels of the 752x480, 1241x376
+   and 512x512 frames' pyramids (the first frames of phases 3, 5 and 7),
+   against the zero-padding mirror (`ops/frontend_level.py` `*_zero`, the
+   Pallas kernels' function) on the whole image and against their plain
+   versions on the interior, at the JAX oracle tests' tolerances; two
+   launches on one input must give the same bits, a call must dispatch
+   only `torch.empty` and enqueue its one kernel alone; one call of each
+   timed on level 0 of 752x480; `blur7` beside `conv2d` with the same 7x7
+   taps (its library yardstick).
    For every kernel phases 2 and 2b print its device time per launch
    (torch.profiler, the kernel's own device events), its bound (the larger
    of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s, H100
@@ -250,7 +255,8 @@ SOURCES = ("frontend_packed", "fused_match", "pose_opt_fused",
            "frontend_level")
 
 # phase 2b: the JAX oracle tests' tolerances (tests/test_pallas_kernels.py),
-# on each level's interior (4 px; 16 px for the moment maps)
+# against the zero-padding mirror on the whole image and against the plain
+# versions on each level's interior (4 px; 16 px for the moment maps)
 LEVEL_SCORE_ATOL = 1e-4
 LEVEL_BLUR_RTOL, LEVEL_BLUR_ATOL = 1e-5, 1e-3
 LEVEL_MOM_RTOL, LEVEL_MOM_ATOL = 2e-4, 2.0
@@ -678,72 +684,108 @@ def check_pose(dev, N=1000):
 
 # --------------------------------------------------------------- phase 2b
 
+def _max_err(got, ref, rtol, atol, what):
+    """Max |got - ref|; fails past atol + rtol |ref|."""
+    g, r = got.float(), ref.float()
+    d = (g - r).abs()
+    worst = d.max().item() if d.numel() else 0.0
+    require(bool((d <= atol + rtol * r.abs()).all()),
+            f"{what} differs by {worst}")
+    return worst
+
+
 def _interior_err(got, ref, b, rtol, atol, what):
     """Max |got - ref| on the b-px interior; fails past atol + rtol |ref|."""
-    g, r = got[b:-b, b:-b].float(), ref[b:-b, b:-b].float()
-    d = (g - r).abs()
-    require(bool((d <= atol + rtol * r.abs()).all()),
-            f"{what} differs by {d.max().item()} on the interior")
-    return d.max().item()
+    return _max_err(got[b:-b, b:-b], ref[b:-b, b:-b], rtol, atol,
+                    f"{what} on the interior")
 
 
-def check_frontend_level(img, dev, record):
-    """The per-level ops API on every level of the pyramid: the path run
-    (counters from 0), then each output against the plain version."""
+# the per-level wrappers, their kernels' names and outputs (score, keep,
+# blur, moments), bytes a pixel (in f32 + out) and operations a pixel
+LEVEL_CASES = (
+    ("fast_nms", "level_kernel<false, false>", "sk", 4 + 5, OPS_FAST + OPS_NMS),
+    ("blur7", "blur7_kernel", "b", 4 + 4, OPS_BLUR),
+    ("frontend_pass", "level_kernel<true, true>", "skmmb", 4 + 17,
+     OPS_FAST + OPS_NMS + OPS_BLUR + OPS_MOMENTS),
+    ("frontend_pass_lite", "level_kernel<true, false>", "skb", 4 + 9,
+     OPS_FAST + OPS_NMS + OPS_BLUR),
+)
+
+
+def _check_level(name, kinds, got, zero, ref, tag, err):
+    """One wrapper's outputs on one level against the mirror (whole image)
+    and the plain version (interior)."""
+    tol = dict(s=(0.0, LEVEL_SCORE_ATOL), b=(LEVEL_BLUR_RTOL, LEVEL_BLUR_ATOL),
+               m=(LEVEL_MOM_RTOL, LEVEL_MOM_ATOL))
+    for kind, g, z, r in zip(kinds, got, zero, ref):
+        what = f"{name} {kind} {tag}"
+        if kind == "k":
+            require(bool((g == z).all()), f"{what}: keep differs from the "
+                    f"mirror at {int((g != z).sum())} cells")
+            require(bool((g[4:-4, 4:-4] == r[4:-4, 4:-4]).all()),
+                    f"{what}: keep differs on the interior")
+            continue
+        err[name] = max(err[name], _max_err(g, z, *tol[kind], what))
+        _interior_err(g, r, 16 if kind == "m" else 4, *tol[kind], what)
+
+
+def check_frontend_level(images, dev, record):
+    """The per-level ops API on every level of each image's pyramid: the
+    path run (counters from 0), each output against the zero-padding mirror
+    on the whole image and the plain version on the interior, two launches
+    bit for bit; then one call of each on level 0 of the first image, its
+    dispatched ops, its device ops and its times."""
     import torch
     from orb_slam3_ros2_tpu_torch.ops import frontend_level as fl
-    from orb_slam3_ros2_tpu_torch.ops import orb_descriptor as desc
     from orb_slam3_ros2_tpu_torch.ops import pyramid as pyr
     from orb_slam3_ros2_tpu_torch.tools.kernel_timing import (device_events,
                                                               time_ms)
 
-    levels = pyr.build_pyramid(torch.from_numpy(img).to(dev), 8, 1.2)
-    fns = (fl.fast_nms, fl.blur7, fl.frontend_pass, fl.frontend_pass_lite)
+    pyramids = [pyr.build_pyramid(torch.from_numpy(img).to(dev), 8, 1.2)
+                for img in images]
+    fns = [getattr(fl, name) for name, *_ in LEVEL_CASES]
+
+    def as_tuple(out):
+        return out if isinstance(out, tuple) else (out,)
+
     for fn in fns:
         fn.launches = 0
-    outs = [tuple(fn(level) for fn in fns) for level in levels]
+    outs = [[tuple(as_tuple(fn(level)) for fn in fns) for level in levels]
+            for levels in pyramids]
     torch.cuda.synchronize()
     launches = [fn.launches for fn in fns]
-    print(f"per-level launches over {len(levels)} levels: {launches}")
-    require(launches == [len(levels)] * 4, "a per-level kernel did not run")
-    err = dict(fast_nms=0.0, blur7=0.0, frontend_pass=0.0)
-    B, BM = 4, 16
-    for level, (sk, blur, full, lite) in zip(levels, outs):
-        s_r, k_r = fl.fast_nms_ref(level)
-        b_r = fl.blur7_ref(level)
-        m01_r, m10_r = desc.moment_maps(level)
-        tag = f"level {tuple(level.shape)}"
-        for (score, keep), key in ((sk, "fast_nms"), (full[:2], "frontend_pass"),
-                                   (lite[:2], "frontend_pass")):
-            e = _interior_err(score, s_r, B, 0.0, LEVEL_SCORE_ATOL,
-                              f"{key} score, {tag}")
-            require(bool((keep[B:-B, B:-B] == k_r[B:-B, B:-B]).all()),
-                    f"{key} keep differs, {tag}")
-            err[key] = max(err[key], e)
-        for b, key in ((blur, "blur7"), (full[4], "frontend_pass"),
-                       (lite[2], "frontend_pass")):
-            err[key] = max(err[key], _interior_err(
-                b, b_r, B, LEVEL_BLUR_RTOL, LEVEL_BLUR_ATOL, f"{key} blur, {tag}"))
-        for m, m_r, name in ((full[2], m01_r, "m01"), (full[3], m10_r, "m10")):
-            err["frontend_pass"] = max(err["frontend_pass"], _interior_err(
-                m, m_r, BM, LEVEL_MOM_RTOL, LEVEL_MOM_ATOL, f"{name}, {tag}"))
-    level0 = levels[0]
+    n_levels = sum(map(len, pyramids))
+    print(f"per-level launches over {n_levels} levels of "
+          f"{len(pyramids)} pyramids: {launches}")
+    require(launches == [n_levels] * 4, "a per-level kernel did not run")
+    err = {name: 0.0 for name, *_ in LEVEL_CASES}
+    for levels, level_outs in zip(pyramids, outs):
+        for level, got in zip(levels, level_outs):
+            tag = f"level {tuple(level.shape)}"
+            for (name, _, kinds, _, _), fn, g in zip(LEVEL_CASES, fns, got):
+                again = as_tuple(fn(level))
+                require(all(torch.equal(a, b) for a, b in zip(g, again)),
+                        f"{name} {tag}: two launches differ")
+                zero = as_tuple(getattr(fl, f"{name}_zero")(level))
+                ref = as_tuple(getattr(fl, f"{name}_ref")(level))
+                _check_level(name, kinds, g, zero, ref, tag, err)
+    level0 = pyramids[0][0]
     n_px = level0.numel()
-    score_ops = OPS_FAST + OPS_NMS
-    # (record key, wrapper, plain version, bytes per pixel, ops per pixel);
-    # outputs: score f32 + keep bool, blur f32, m01/m10 f32 for the full pass
-    cases = (
-        ("fast_nms", fl.fast_nms, fl.fast_nms_ref, 4 + 5, score_ops),
-        ("blur7", fl.blur7, fl.blur7_ref, 4 + 4, OPS_BLUR),
-        ("frontend_pass", fl.frontend_pass, fl.frontend_pass_ref,
-         4 + 17, score_ops + OPS_BLUR + OPS_MOMENTS),
-        ("frontend_pass_lite", fl.frontend_pass_lite,
-         fl.frontend_pass_lite_ref,
-         4 + 9, score_ops + OPS_BLUR))
-    for (key, fn, ref, b_px, o_px), n_l in zip(cases, launches):
-        r = kernel_times(lambda: fn(level0), ("level_kernel",), b_px * n_px,
-                         o_px * n_px, plain=lambda: ref(level0))
-        r.update(launches=n_l, max_abs_err=err.get(key))
+    for (key, kname, _, b_px, o_px), fn, n_l in zip(LEVEL_CASES, fns,
+                                                   launches):
+        ops = [str(op) for op in aten_ops(lambda: fn(level0))]
+        require(set(ops) == {"aten.empty.memory_format"},
+                f"{key}: the wrapper dispatches {ops}")
+        r = kernel_times(lambda: fn(level0), (kname,), b_px * n_px,
+                         o_px * n_px,
+                         plain=lambda: getattr(fl, f"{key}_ref")(level0))
+        if r["device_ms"] is not None:  # the profiler window: this kernel
+            require(len(r["device_ops"]) == 1
+                    and kname in next(iter(r["device_ops"])),
+                    f"{key}: one call enqueues {r['device_ops']}")
+        print(f"{key}: device ops of 20 calls {r['device_ops']}, aten ops "
+              f"of one call {ops}")
+        r.update(launches=n_l, max_abs_err=err[key])
         record[key] = r
     # blur7's library yardstick: one conv2d with the 7x7 outer product of
     # the same taps and the same zero padding (TF32 off, as the package
@@ -762,6 +804,8 @@ def check_frontend_level(img, dev, record):
         conv() - fl.blur7(level0)).abs().max().item()
     lite = record.pop("frontend_pass_lite")
     record["frontend_pass"]["launches"] += lite["launches"]
+    record["frontend_pass"]["max_abs_err"] = max(
+        record["frontend_pass"]["max_abs_err"], lite["max_abs_err"])
     record["frontend_pass"]["lite"] = {k: v for k, v in lite.items()
                                        if k != "device_ops"}
 
@@ -2398,7 +2442,13 @@ def main() -> int:
                            fy=FY, seed=1)[0][0]
     record = dict(frontend_packed=check_frontend(img0, dev, n_features=1000),
                   fused_match=check_match(dev), pose_opt_fused=check_pose(dev))
-    check_frontend_level(img0, dev, record)
+    # the stereo and RGB-D paths' shapes, on the first frames of their clips
+    t_render = time.perf_counter()
+    clips = {name: sr.RIGS[name].render() for name in RIG_PHASES}
+    print(f"rendered the clips of phases 5-7 in "
+          f"{time.perf_counter() - t_render:.2f} s")
+    check_frontend_level((img0, clips["kitti_stereo"][0][0],
+                          clips["tumvi_stereo"][0][0]), dev, record)
     labels = dict(frontend_packed="frontend_packed 752x480",
                   fused_match="fused_match 1000x4096 at 15 px",
                   pose_opt_fused="pose_opt_fused N=1000",
@@ -2412,11 +2462,6 @@ def main() -> int:
     print(f"blur7 beside conv2d: conv2d device "
           f"{record['blur7']['library_device_ms']} ms, max |conv2d - blur7| "
           f"{record['blur7']['library_max_abs_diff']:.3g}")
-    # the stereo and RGB-D paths' shapes, on the first frames of their clips
-    t_render = time.perf_counter()
-    clips = {name: sr.RIGS[name].render() for name in RIG_PHASES}
-    print(f"rendered the clips of phases 5-7 in "
-          f"{time.perf_counter() - t_render:.2f} s")
     shapes = {
         "frontend_packed 1241x376": check_frontend(
             clips["kitti_stereo"][0][0], dev, n_features=2000),

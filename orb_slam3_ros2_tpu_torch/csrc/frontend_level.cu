@@ -3,201 +3,550 @@
 // radius-15 disc, for one pyramid level (one launch per call).
 //
 // Replaces the TPU kernels of orb_slam3_ros2_tpu/ops/pallas_kernels.py:
-//   _fast_nms_call  (fast_nms)                          -> fast_nms_level_launch
-//   _blur_call      (blur7)                             -> blur7_level_launch
-//   _frontend_call  (frontend_pass / frontend_pass_lite) -> frontend_level_launch
+//   _fast_nms_call  (fast_nms, :161)              -> level_kernel<false, false>
+//   _frontend_call  (frontend_pass_lite, :340)    -> level_kernel<true, false>
+//   _frontend_call  (frontend_pass, :340)         -> level_kernel<true, true>
+//   _blur_call      (blur7, :182)                 -> blur7_kernel
+// with the Pallas kernels' semantics on the whole image: zero padding, score
+// 0 outside the interior (>= 3 px from the edges), NMS against 0 outside.
 //
-// What bounds it on the H100: memory traffic and launch latency, as for the
-// packed kernel (csrc/frontend_packed.cu). A 480x752 level is 1.4 MB in and
-// at most 5 maps out (~8.7 MB), ~3 us of HBM time at 3.35 TB/s. The moment
-// maps add 31 rows x 3 adds per pixel over prefix sums, still far under the
-// card's f32 rate. Each block stages a 16x32 output tile plus a halo (4 px:
-// FAST ring 3 + NMS 1; 16 px with moments: disc 15 + NMS 1) in shared
-// memory, reading every input pixel of the tile once. The score is computed
-// on a 1-px ring around the tile so NMS needs no other block. The moments
-// are row prefix sums of the staged tile, then per output pixel the per-row
-// [x-u, x+u] differences with u = floor(sqrt(225 - dy^2)); the x weights are
-// taken relative to the tile's centre column so the f32 sums stay small.
-// Reads outside the image are 0 (the TPU kernels' zero padding).
+// What bounds it on the H100: by the roofline, bytes (a 480x752 level is
+// 1.4 MB in; fast_nms writes 5 B a pixel, the full pass 17 B: 0.97 / 2.26
+// us at 3.35 TB/s). In practice each block runs its phases (stage, score,
+// NMS and blur, store) between barriers, and a level's 240-360 blocks all
+// run at once, so each phase's latency shows: staging alone takes 1.87 us
+// of fast_nms' 6.3 at 752x480 (NVIDIA H100 80GB HBM3, 700.00 W;
+// tools/level_ablation.py). With the moment maps, shared memory: ~60 loads
+// a pixel for the gather plus the prefix sums, beside the score warps'.
+//
+// What the design does about it:
+// - Tiles: 64x16 outputs for fast_nms and the lite pass (360 blocks of 256
+//   threads at 752x480), 96x16 with the moment maps (240 blocks of 512
+//   threads, 99.5 KB of dynamic shared memory: two a SM, one wave on 132
+//   SMs; 1241x376's level 0 needs 312, 1.18 waves). A thread's staging
+//   loads are all issued before any is stored.
+// - The FAST score is the packed kernel's (csrc/frontend_packed.cu): the
+//   windowed min/max on order-preserving integer keys with Hopper's 3-input
+//   DPX min/max, bit-identical to the plain score. A pixel gets it only if
+//   two compass points 4 apart are both brighter (or both darker) than the
+//   centre, which every 9-arc implies; the cells that pass are listed in
+//   shared memory (one atomic a warp) and scored after a barrier, so the
+//   min/max runs on the listed cells alone, not on every warp that holds
+//   one.
+// - Stores go in groups of 4 cells on the output's 16-byte grid (float4
+//   score and blur, uchar4 keep); a group cut by the tile's or the row's
+//   edge is written cell by cell. Level widths are not multiples of 4.
+// - The moment maps take their own warps: warps 0-3 build the row prefix
+//   sums S (one thread a row) and gather m01 = sum_d d * (S range of width
+//   2u(d)+1 in the row at +d); warps 4-7 the column prefix sums V and m10
+//   the same with columns. A walker loads a chunk of its row or column
+//   before it adds, and each gather thread owns 3 adjacent columns x 4 rows
+//   of outputs, walking each row (column) once so that one load serves
+//   every output that reads it: ~60 shared loads a pixel for both maps
+//   against 124 for one output a thread, on 32 distinct banks (3 columns a
+//   lane). Warps 8-15 meanwhile score, NMS and blur the tile, synchronised
+//   among themselves by a named barrier.
+// - Precision: the sums stay f32 with no tensor cores. The prefix sums are
+//   of I - 128 (the disc is symmetric, so a constant shift of every disc
+//   pixel, padding included, changes neither moment) and the weights are
+//   the small dy / dx of each range, so no large x-weighted prefix cancels.
+// - The blur taps are compiled in (c_taps, the f32 values of
+//   ops/pyramid.py _gauss_kernel1d(7, 2.0)), summed in the plain version's
+//   order; the library is built with --fmad=false, so the blur is
+//   bit-identical to the plain zero-padded blur.
+// - blur7 keeps its earlier design (32x16 tiles, 256 threads).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define TW 32
-#define TH 16
-#define BORDER 3
-#define MOM_R 15
+namespace {
 
-struct Taps {
-  float t[7];
+// output tiles of a block: with the moment maps (MTW x MTH) and without
+constexpr int MTW = 96, MTH = 16;
+constexpr int LTW = 64, LTH = 16;
+constexpr int NT = 256;    // threads a block without the moment maps
+constexpr int NTM = 512;   // threads a block with them
+constexpr int BORDER = 3;  // FAST interior margin
+constexpr int R = 15;      // moment disc radius
+constexpr int NM = 256;        // moment threads (warps 0-7)
+constexpr int NS = NM / 2;     // of which m01 (warps 0-3) and m10 (4-7)
+constexpr int MC = 3, MK = 4;  // outputs a moment thread: 3 cols x 4 rows
+static_assert(MC * 32 == MTW && MK * (NS / 32) == MTH, "moment tiling");
+// moment staging: the tile and a 15-px halo, odd pitch for the row walkers
+constexpr int MH = MTH + 2 * R, MW = MTW + 2 * R;
+constexpr int MP = MW + 1;  // s_img / S pitch (S has MW+1 entries a row)
+constexpr int VP = MW;      // V pitch (MH+1 rows)
+static_assert(MP % 2 == 1, "row walkers need an odd pitch");
+
+// Shared memory of a TW x TH tile, in 4-byte words: keys of the tile and a
+// 4-px halo, the score of the tile and a 1-px ring (columns at +3), the
+// vertical blur (columns -3 .. TW+2 at +3), the list of cells to score and
+// its length, then the staged pixels (the 4-px halo region, or with MOM
+// the 15-px one) and the prefix sums.
+template <int TW, int TH>
+struct Tile {
+  static constexpr int NG = TW / 4 + 1;  // 16-byte groups a tile row touches
+  static constexpr int KH = TH + 8, KW = TW + 8;
+  static constexpr int SCW = TW + 8, SVW = TW + 12;
+  static constexpr int NPIX = (TH + 2) * (TW + 2);  // scored cells
+  static constexpr int OFF_SC = KH * KW;
+  static constexpr int OFF_V = OFF_SC + (TH + 2) * SCW;
+  static constexpr int OFF_L = OFF_V + TH * SVW;  // cells to score, count
+  static constexpr int OFF_F = OFF_L + NPIX + 1;
+  static constexpr int LITE_BYTES = (OFF_F + KH * KW) * 4;
+  static constexpr int OFF_S = OFF_F + MH * MP;
+  static constexpr int OFF_VS = OFF_S + MH * MP;
+  static constexpr int MOM_BYTES = (OFF_VS + (MH + 1) * VP) * 4;
 };
 
-__constant__ int c_dy[16] = {-3, -3, -2, -1, 0, 1, 2, 3,
-                             3, 3, 2, 1, 0, -1, -2, -3};
-__constant__ int c_dx[16] = {0, 1, 2, 3, 3, 3, 2, 1,
-                             0, -1, -2, -3, -3, -3, -2, -1};
-// u(dy) = floor(sqrt(15^2 - dy^2)) for dy = -15..15
-__constant__ int c_u[2 * MOM_R + 1] = {0, 5, 7, 9, 10, 11, 12, 12, 13, 13, 14,
-                                       14, 14, 14, 14, 15, 14, 14, 14, 14, 14,
-                                       13, 13, 12, 12, 11, 10, 9, 7, 5, 0};
+// f32 values of ops/pyramid.py _gauss_kernel1d(7, 2.0)
+__constant__ float c_taps[7] = {0x1.1f5f62p-4f, 0x1.0c70fcp-3f, 0x1.869472p-3f,
+                                0x1.ba95c0p-3f, 0x1.869472p-3f, 0x1.0c70fcp-3f,
+                                0x1.1f5f62p-4f};
 
-template <int HALO, bool SCORE, bool BLUR, bool MOM>
-__global__ void __launch_bounds__(256)
-level_kernel(const float* __restrict__ img, int H, int W, Taps taps,
+// u(d) = floor(sqrt(15^2 - d^2)): the disc's half-width at row offset d
+__host__ __device__ constexpr int disc_u(int d) {
+  return d == 0 ? 15 : d <= 5 ? 14 : d <= 7 ? 13 : d <= 9 ? 12 : d == 10 ? 11
+       : d == 11 ? 10 : d == 12 ? 9 : d == 13 ? 7 : d == 14 ? 5 : 0;
+}
+
+// Order-preserving integer key of a float's bits (an involution): signed
+// integer order of keys is the float order, with -0 just below +0.
+__device__ __forceinline__ int key_of(int bits) {
+  return bits ^ ((bits >> 31) & 0x7fffffff);
+}
+
+// FAST-9 score at (cy, cx) of the keys k (row pitch P): the largest t for
+// which 9 contiguous ring samples are all brighter than c + t or all darker
+// than c - t (csrc/frontend_packed.cu fast_score).
+template <int P>
+__device__ __forceinline__ float fast_score(const int* k, int cy, int cx) {
+  const int* q = k + cy * P + cx;
+  // Bresenham circle of radius 3, clockwise from 12 o'clock (ops/fast.py)
+  const int p[16] = {q[-3 * P],     q[-3 * P + 1], q[-2 * P + 2], q[-P + 3],
+                     q[3],          q[P + 3],      q[2 * P + 2],  q[3 * P + 1],
+                     q[3 * P],      q[3 * P - 1],  q[2 * P - 2],  q[P - 3],
+                     q[-3],         q[-P - 3],     q[-2 * P - 2], q[-3 * P - 1]};
+  const float c = __int_as_float(key_of(q[0]));
+  int lo[16], hi[16];  // min / max of the arc of 3 from j
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    lo[j] = __vimin3_s32(p[j], p[(j + 1) & 15], p[(j + 2) & 15]);
+    hi[j] = __vimax3_s32(p[j], p[(j + 1) & 15], p[(j + 2) & 15]);
+  }
+  // a: max over the 16 arcs of 9 of their min; b: min of their max
+  int a = INT32_MIN, b = INT32_MAX;
+#pragma unroll
+  for (int j = 0; j < 16; j += 2) {
+    const int j1 = j + 1;
+    a = __vimax3_s32(
+        a, __vimin3_s32(lo[j], lo[(j + 3) & 15], lo[(j + 6) & 15]),
+        __vimin3_s32(lo[j1], lo[(j1 + 3) & 15], lo[(j1 + 6) & 15]));
+    b = __vimin3_s32(
+        b, __vimax3_s32(hi[j], hi[(j + 3) & 15], hi[(j + 6) & 15]),
+        __vimax3_s32(hi[j1], hi[(j1 + 3) & 15], hi[(j1 + 6) & 15]));
+  }
+  // bright arc: a - c; dark arc: c - b; the score is >= 0
+  return fmaxf(fmaxf(__int_as_float(key_of(a)) - c,
+                     c - __int_as_float(key_of(b))), 0.f);
+}
+
+// Whether a 9-arc of the ring at (cy, cx) can be all brighter or all
+// darker than the centre: a necessary condition for a score above 0 (keys
+// order as the floats do, -0 just below +0, so the test passes wherever
+// the float comparisons would).
+template <int P>
+__device__ __forceinline__ bool arc_possible(const int* k, int cy, int cx) {
+  const int* q = k + cy * P + cx;
+  const int c = q[0];
+  const bool n = q[-3 * P] > c, e = q[3] > c, s = q[3 * P] > c, w = q[-3] > c;
+  const bool dn = q[-3 * P] < c, de = q[3] < c, ds = q[3 * P] < c,
+             dw = q[-3] < c;
+  return (n && e) || (e && s) || (s && w) || (w && n) || (dn && de) ||
+         (de && ds) || (ds && dw) || (dw && dn);
+}
+
+__device__ __forceinline__ void group_sync(int id, int n) {
+  if (id == 0)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// Score, NMS and (BLUR) blur of the TW x TH tile at (x0, y0) by `n`
+// threads (t is the thread's index among them; `bar` their barrier). `f`
+// points at the staged pixel of tile cell (-4, -4), row pitch fp.
+template <int TW, int TH, bool BLUR>
+__device__ void score_tile(const int* s_key, float* s_sc, float* s_v,
+                           int* s_list, const float* f, int fp, int x0,
+                           int y0, int H, int W, int t, int n, int bar,
+                           float* score_out, uint8_t* keep_out,
+                           float* blur_out) {
+  using T = Tile<TW, TH>;
+  constexpr int SCW = T::SCW, SVW = T::SVW, NG = T::NG, NPIX = T::NPIX;
+  int* s_count = s_list + NPIX;  // 0 on entry
+  // FAST-9 score on the tile plus a 1-px ring (the NMS neighbourhood); 0
+  // outside the interior (>= 3 px from the edges), and 0 where no 9-arc
+  // can be brighter or darker than the centre: such an arc holds two
+  // compass points 4 apart, so one of those pairs must be brighter
+  // (darker) too. The cells that pass that test are listed (each warp
+  // appends its own with one atomic) and scored after the barrier, so the
+  // min/max runs on them alone.
+  const int lane = t & 31;
+  for (int base = t - lane; base < NPIX; base += n) {  // warp-uniform
+    const int i = base + lane;
+    bool maybe = false;
+    if (i < NPIX) {
+      const int ly = i / (TW + 2), lx = i - ly * (TW + 2);
+      const int y = y0 - 1 + ly, x = x0 - 1 + lx;
+      maybe = y >= BORDER && y < H - BORDER && x >= BORDER &&
+              x < W - BORDER && arc_possible<T::KW>(s_key, ly + 3, lx + 3);
+      s_sc[ly * SCW + lx + 3] = 0.f;
+    }
+    const unsigned m = __ballot_sync(0xffffffffu, maybe);
+    if (m != 0u) {
+      int pos = 0;
+      if (lane == 0) pos = atomicAdd(s_count, __popc(m));
+      pos = __shfl_sync(0xffffffffu, pos, 0);
+      if (maybe) s_list[pos + __popc(m & ((1u << lane) - 1u))] = i;
+    }
+  }
+  if constexpr (BLUR) {
+    // vertical pass: the tile's rows, columns x0-3 .. x0+TW+2
+    for (int i = t; i < TH * (TW + 6); i += n) {
+      const int ly = i / (TW + 6), lx = i - ly * (TW + 6);
+      const float* c = f + (ly + 1) * fp + lx + 1;
+      float v = 0.f;
+#pragma unroll
+      for (int k = 0; k < 7; ++k) v += c_taps[k] * c[k * fp];
+      s_v[ly * SVW + lx + 3] = v;
+    }
+  }
+  group_sync(bar, n);
+  for (int e = t; e < *s_count; e += n) {
+    const int i = s_list[e];
+    const int ly = i / (TW + 2), lx = i - ly * (TW + 2);
+    s_sc[ly * SCW + lx + 3] = fast_score<T::KW>(s_key, ly + 3, lx + 3);
+  }
+  group_sync(bar, n);
+
+  // groups of 4 cells on the output's 16-byte grid; a thread's cells in
+  // [x0, xe) are this tile's
+  const int xe = min(x0 + TW, W);
+  for (int g = t; g < TH * NG; g += n) {
+    const int ly = g / NG, y = y0 + ly;
+    if (y >= H) continue;
+    const size_t row = (size_t)y * W;
+    const int xs = x0 - (int)((row + x0) & 3) + 4 * (g - ly * NG);
+    if (xs + 4 <= x0 || xs >= xe) continue;
+    const int c0 = xs - x0;  // tile column of the first cell, -3 .. TW-1
+    float sc[4], bl[4];
+    uint8_t kp[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* n0 = s_sc + ly * SCW + c0 + j + 3;  // 3x3 neighbourhood
+      const float* n1 = n0 + SCW;
+      const float* n2 = n1 + SCW;
+      const float c = n1[1];
+      // raster tie-break: strict against earlier neighbours, >= later ones
+      const bool keep = c > n0[0] && c > n0[1] && c > n0[2] && c > n1[0] &&
+                        c >= n1[2] && c >= n2[0] && c >= n2[1] && c >= n2[2];
+      sc[j] = c;
+      kp[j] = keep ? 1 : 0;
+      if constexpr (BLUR) {
+        float bv = 0.f;
+#pragma unroll
+        for (int k = 0; k < 7; ++k) bv += c_taps[k] * s_v[ly * SVW + c0 + j + k + 3];
+        bl[j] = bv;
+      }
+    }
+    const size_t o = row + xs;
+    if (xs >= x0 && xs + 4 <= xe) {
+      *reinterpret_cast<float4*>(score_out + o) =
+          make_float4(sc[0], sc[1], sc[2], sc[3]);
+      *reinterpret_cast<uchar4*>(keep_out + o) =
+          make_uchar4(kp[0], kp[1], kp[2], kp[3]);
+      if constexpr (BLUR)
+        *reinterpret_cast<float4*>(blur_out + o) =
+            make_float4(bl[0], bl[1], bl[2], bl[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (xs + j >= x0 && xs + j < xe) {
+          score_out[o + j] = sc[j];
+          keep_out[o + j] = kp[j];
+          if constexpr (BLUR) blur_out[o + j] = bl[j];
+        }
+      }
+    }
+  }
+}
+
+// One moment map of the tile by NS threads (t < NS): with ROWS the row
+// prefix sums P[r][c] (pitch MP) of I - 128 over the staged tile (s_img,
+// MH x MW at pitch MP), the sum of row r's columns < c, and m01 = sum_d d *
+// (P range of width 2u(d)+1 in the row at +d); else the column prefix sums
+// P[r][c] (pitch VP), the sum of column c's rows < r, and m10 the same
+// with columns. A walker loads a chunk of its row (column) into registers
+// before it adds, so the chunk's loads are in flight together. Each thread
+// then gathers MC columns x MK rows of outputs, walking the rows (columns)
+// of P once: a row's loads serve every output of the thread that reads it.
+constexpr int SCHUNK = 14, VCHUNK = 23;
+static_assert(MW % SCHUNK == 0 && MH % VCHUNK == 0, "walker chunks");
+
+template <bool ROWS>
+__device__ void moment_map(const float* __restrict__ s_img,
+                           float* __restrict__ P, int x0, int y0, int H,
+                           int W, int t, float* __restrict__ out) {
+  if constexpr (ROWS) {
+    if (t < MH) {  // one row a thread
+      const float* in = s_img + t * MP;
+      float* row = P + t * MP;
+      float acc = 0.f;
+      row[0] = 0.f;
+      for (int c0 = 0; c0 < MW; c0 += SCHUNK) {
+        float x[SCHUNK];
+#pragma unroll
+        for (int i = 0; i < SCHUNK; ++i) x[i] = in[c0 + i];
+#pragma unroll
+        for (int i = 0; i < SCHUNK; ++i) {
+          acc += x[i] - 128.f;
+          row[c0 + i + 1] = acc;
+        }
+      }
+    }
+  } else {
+    for (int c = t; c < MW; c += NS) {  // one or two columns a thread
+      float acc = 0.f;
+      P[c] = 0.f;
+      for (int r0 = 0; r0 < MH; r0 += VCHUNK) {
+        float x[VCHUNK];
+#pragma unroll
+        for (int i = 0; i < VCHUNK; ++i) x[i] = s_img[(r0 + i) * MP + c];
+#pragma unroll
+        for (int i = 0; i < VCHUNK; ++i) {
+          acc += x[i] - 128.f;
+          P[(r0 + i + 1) * VP + c] = acc;
+        }
+      }
+    }
+  }
+  group_sync(ROWS ? 1 : 3, NS);
+
+  const int lane = t & 31, w = t >> 5;
+  const int sy = MK * w + R, sx = MC * lane + R;  // staged coordinates
+  float m[MK][MC];
+#pragma unroll
+  for (int k = 0; k < MK; ++k)
+#pragma unroll
+    for (int j = 0; j < MC; ++j) m[k][j] = 0.f;
+  if constexpr (ROWS) {
+    const float* Pb = P + sy * MP + sx;
+#pragma unroll
+    for (int r = -R; r < MK + R; ++r) {  // P row sy + r
+      const float* row = Pb + r * MP;
+#pragma unroll
+      for (int k = 0; k < MK; ++k) {
+        const int d = r - k;
+        if (d == 0 || d < -R || d > R) continue;
+        const int u = disc_u(d < 0 ? -d : d);
+#pragma unroll
+        for (int j = 0; j < MC; ++j)
+          m[k][j] = __fmaf_rn((float)d, row[j + u + 1] - row[j - u], m[k][j]);
+      }
+    }
+  } else {
+    const float* Pb = P + sy * VP + sx;
+#pragma unroll
+    for (int c = -R; c < MC + R; ++c) {  // P column sx + c
+      const float* col = Pb + c;
+#pragma unroll
+      for (int j = 0; j < MC; ++j) {
+        const int d = c - j;
+        if (d == 0 || d < -R || d > R) continue;
+        const int u = disc_u(d < 0 ? -d : d);
+#pragma unroll
+        for (int k = 0; k < MK; ++k)
+          m[k][j] = __fmaf_rn((float)d, col[(k + u + 1) * VP] - col[(k - u) * VP],
+                              m[k][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < MK; ++k) {
+    const int y = y0 + MK * w + k;
+    if (y >= H) continue;
+#pragma unroll
+    for (int j = 0; j < MC; ++j) {
+      const int x = x0 + MC * lane + j;
+      if (x < W) out[(size_t)y * W + x] = m[k][j];
+    }
+  }
+}
+
+// One output tile a block (MTW x MTH with MOM, LTW x LTH without).
+// Without MOM all 256 threads score, NMS and blur the tile; with MOM warps
+// 0-3 compute m01, warps 4-7 m10 and warps 8-15 the rest.
+template <bool BLUR, bool MOM>
+__global__ void __launch_bounds__(MOM ? NTM : NT, MOM ? 2 : 1)
+level_kernel(const float* __restrict__ img, int H, int W,
              float* __restrict__ score_out, uint8_t* __restrict__ keep_out,
-             float* __restrict__ m01_out, float* __restrict__ m10_out,
-             float* __restrict__ blur_out) {
-  constexpr int SH = TH + 2 * HALO;
-  constexpr int SW = TW + 2 * HALO;
-  __shared__ float s_img[SH][SW];
-  __shared__ float s_sc[SCORE ? TH + 2 : 1][SCORE ? TW + 2 : 1];
-  __shared__ float s_v[BLUR ? TH : 1][BLUR ? TW + 6 : 1];
-  // prefix sums with a leading zero column: sum of cols [a, b] = P[b+1]-P[a]
-  __shared__ float s_S[MOM ? SH : 1][MOM ? SW + 1 : 1];
-  __shared__ float s_C[MOM ? SH : 1][MOM ? SW + 1 : 1];
+             float* __restrict__ blur_out, float* __restrict__ m01_out,
+             float* __restrict__ m10_out) {
+  constexpr int TW = MOM ? MTW : LTW, TH = MOM ? MTH : LTH;
+  using T = Tile<TW, TH>;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  int* s_key = reinterpret_cast<int*>(smem);
+  float* s_sc = smem + T::OFF_SC;
+  float* s_v = smem + T::OFF_V;
+  int* s_list = reinterpret_cast<int*>(smem + T::OFF_L);
+  float* s_f = smem + T::OFF_F;
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
+  const int tid = threadIdx.x;
+  if (tid == 0) s_list[T::NPIX] = 0;  // the list's length
 
-  const int x0 = blockIdx.x * TW;
-  const int y0 = blockIdx.y * TH;
+  // the staged region: the tile and a 15-px halo with MOM (the keys of its
+  // inner 4-px halo region beside it), else the tile and a 4-px halo; zero
+  // outside the image. Unrolled, so a thread's loads are all in flight at
+  // once.
+  constexpr int SH = MOM ? MH : T::KH, SW = MOM ? MW : T::KW;
+  constexpr int HALO = MOM ? R : 4, N = MOM ? NTM : NT;
+  float v[(SH * SW + N - 1) / N];
+#pragma unroll
+  for (int k = 0; k < (SH * SW + N - 1) / N; ++k) {
+    const int i = tid + k * N;
+    const int ly = i / SW, lx = i - ly * SW;
+    const int y = y0 - HALO + ly, x = x0 - HALO + lx;
+    v[k] = (i < SH * SW && y >= 0 && y < H && x >= 0 && x < W)
+               ? __ldg(img + (size_t)y * W + x) : 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < (SH * SW + N - 1) / N; ++k) {
+    const int i = tid + k * N;
+    if (i >= SH * SW) break;
+    const int ly = i / SW, lx = i - ly * SW;
+    if constexpr (MOM) {
+      s_f[ly * MP + lx] = v[k];
+      const int ky = ly - (R - 4), kx = lx - (R - 4);
+      if (ky >= 0 && ky < T::KH && kx >= 0 && kx < T::KW)
+        s_key[ky * T::KW + kx] = key_of(__float_as_int(v[k]));
+    } else {
+      s_key[i] = key_of(__float_as_int(v[k]));
+      if constexpr (BLUR) s_f[i] = v[k];
+    }
+  }
+  __syncthreads();
+
+  if constexpr (MOM) {
+    if (tid < NS) {
+      moment_map<true>(s_f, smem + T::OFF_S, x0, y0, H, W, tid, m01_out);
+    } else if (tid < NM) {
+      moment_map<false>(s_f, smem + T::OFF_VS, x0, y0, H, W, tid - NS,
+                        m10_out);
+    } else {
+      score_tile<TW, TH, BLUR>(s_key, s_sc, s_v, s_list,
+                               s_f + (R - 4) * MP + (R - 4), MP, x0, y0, H,
+                               W, tid - NM, NTM - NM, 2, score_out, keep_out,
+                               blur_out);
+    }
+  } else {
+    score_tile<TW, TH, BLUR>(s_key, s_sc, s_v, s_list, s_f, T::KW, x0, y0, H, W,
+                             tid, NT, 0, score_out, keep_out, blur_out);
+  }
+}
+
+// blur7: the earlier design, one 32x16 tile a block of 32x8 threads.
+constexpr int BTW = 32, BTH = 16, BHALO = 4;
+
+__global__ void __launch_bounds__(256)
+blur7_kernel(const float* __restrict__ img, int H, int W,
+             float* __restrict__ blur_out) {
+  constexpr int SH = BTH + 2 * BHALO;
+  constexpr int SW = BTW + 2 * BHALO;
+  __shared__ float s_img[SH][SW];
+  __shared__ float s_v[BTH][BTW + 6];
+
+  const int x0 = blockIdx.x * BTW;
+  const int y0 = blockIdx.y * BTH;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthr = blockDim.x * blockDim.y;
 
   for (int i = tid; i < SH * SW; i += nthr) {
     int ly = i / SW, lx = i % SW;
-    int gy = y0 - HALO + ly, gx = x0 - HALO + lx;
+    int gy = y0 - BHALO + ly, gx = x0 - BHALO + lx;
     s_img[ly][lx] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
                         ? img[(size_t)gy * W + gx] : 0.f;
   }
   __syncthreads();
-
-  if constexpr (SCORE) {
-    // FAST-9 score on the tile plus a 1-px ring (the NMS neighbourhood)
-    for (int i = tid; i < (TH + 2) * (TW + 2); i += nthr) {
-      int ly = i / (TW + 2), lx = i % (TW + 2);
-      int gy = y0 - 1 + ly, gx = x0 - 1 + lx;
-      float s = 0.f;
-      if (gy >= BORDER && gy < H - BORDER && gx >= BORDER && gx < W - BORDER) {
-        int cy = ly + HALO - 1, cx = lx + HALO - 1;
-        float c = s_img[cy][cx];
-        float d[16];
+  // vertical pass: output rows of the tile, columns x0-3 .. x0+BTW+2
+  for (int i = tid; i < BTH * (BTW + 6); i += nthr) {
+    int ly = i / (BTW + 6), lx = i % (BTW + 6);
+    float v = 0.f;
 #pragma unroll
-        for (int k = 0; k < 16; ++k)
-          d[k] = s_img[cy + c_dy[k]][cx + c_dx[k]] - c;
-#pragma unroll
-        for (int k = 0; k < 16; ++k) {
-          float mn = d[k], mx = d[k];
-#pragma unroll
-          for (int j = 1; j < 9; ++j) {
-            mn = fminf(mn, d[(k + j) & 15]);
-            mx = fmaxf(mx, d[(k + j) & 15]);
-          }
-          // bright arc: min d > t; dark arc: -max d > t; score >= 0
-          s = fmaxf(s, fmaxf(mn, -mx));
-        }
-      }
-      s_sc[ly][lx] = s;
-    }
-  }
-  if constexpr (BLUR) {
-    // vertical pass: output rows of the tile, columns x0-3 .. x0+TW+2
-    for (int i = tid; i < TH * (TW + 6); i += nthr) {
-      int ly = i / (TW + 6), lx = i % (TW + 6);
-      float v = 0.f;
-#pragma unroll
-      for (int t = 0; t < 7; ++t)
-        v += taps.t[t] * s_img[ly + HALO - 3 + t][lx + HALO - 3];
-      s_v[ly][lx] = v;
-    }
-  }
-  if constexpr (MOM) {
-    // one thread per staged row: serial prefix sums of I and (x - xc) * I,
-    // xc = the tile's centre column
-    for (int r = tid; r < SH; r += nthr) {
-      float s = 0.f, c = 0.f;
-      s_S[r][0] = 0.f;
-      s_C[r][0] = 0.f;
-      for (int j = 0; j < SW; ++j) {
-        float v = s_img[r][j];
-        s += v;
-        c += (float)(j - HALO - TW / 2) * v;
-        s_S[r][j + 1] = s;
-        s_C[r][j + 1] = c;
-      }
-    }
+    for (int t = 0; t < 7; ++t)
+      v += c_taps[t] * s_img[ly + BHALO - 3 + t][lx + BHALO - 3];
+    s_v[ly][lx] = v;
   }
   __syncthreads();
-
-  for (int i = tid; i < TH * TW; i += nthr) {
-    int ly = i / TW, lx = i % TW;
+  for (int i = tid; i < BTH * BTW; i += nthr) {
+    int ly = i / BTW, lx = i % BTW;
     int gy = y0 + ly, gx = x0 + lx;
     if (gy >= H || gx >= W) continue;
-    size_t o = (size_t)gy * W + gx;
-    if constexpr (SCORE) {
-      float c = s_sc[ly + 1][lx + 1];
-      // raster tie-break: strict against earlier neighbours, >= later ones
-      bool keep = c > s_sc[ly][lx] && c > s_sc[ly][lx + 1] &&
-                  c > s_sc[ly][lx + 2] && c > s_sc[ly + 1][lx] &&
-                  c >= s_sc[ly + 1][lx + 2] && c >= s_sc[ly + 2][lx] &&
-                  c >= s_sc[ly + 2][lx + 1] && c >= s_sc[ly + 2][lx + 2];
-      score_out[o] = c;
-      keep_out[o] = keep ? 1 : 0;
-    }
-    if constexpr (BLUR) {
-      float b = 0.f;
+    float b = 0.f;
 #pragma unroll
-      for (int t = 0; t < 7; ++t) b += taps.t[t] * s_v[ly][lx + t];
-      blur_out[o] = b;
-    }
-    if constexpr (MOM) {
-      const int cx = lx + HALO;
-      float m01 = 0.f, msum = 0.f, mxw = 0.f;
-#pragma unroll
-      for (int k = 0; k < 2 * MOM_R + 1; ++k) {
-        const int dy = k - MOM_R, u = c_u[k], r = ly + HALO + dy;
-        float rs = s_S[r][cx + u + 1] - s_S[r][cx - u];
-        m01 += (float)dy * rs;
-        msum += rs;
-        mxw += s_C[r][cx + u + 1] - s_C[r][cx - u];
-      }
-      m01_out[o] = m01;
-      m10_out[o] = mxw - msum * (float)(lx - TW / 2);
-    }
+    for (int t = 0; t < 7; ++t) b += c_taps[t] * s_v[ly][lx + t];
+    blur_out[(size_t)gy * W + gx] = b;
   }
 }
 
-template <int HALO, bool SCORE, bool BLUR, bool MOM>
-static int launch(const float* img, int H, int W, const float* taps,
-                  float* score, uint8_t* keep, float* m01, float* m10,
-                  float* blur, void* stream) {
+template <bool BLUR, bool MOM>
+int launch_level(const float* img, int H, int W, float* score, uint8_t* keep,
+                 float* blur, float* m01, float* m10, void* stream) {
   if (H < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  Taps tp;
-  for (int t = 0; t < 7; ++t) tp.t[t] = taps ? taps[t] : 0.f;
-  dim3 block(32, 8);
+  // 16-byte group stores (torch allocations start on 256 bytes)
+  if ((((uintptr_t)score | (uintptr_t)keep | (uintptr_t)blur) & 15) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  constexpr int TW = MOM ? MTW : LTW, TH = MOM ? MTH : LTH;
+  constexpr int smem = MOM ? Tile<TW, TH>::MOM_BYTES : Tile<TW, TH>::LITE_BYTES;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        level_kernel<BLUR, MOM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
   dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
-  level_kernel<HALO, SCORE, BLUR, MOM><<<grid, block, 0, (cudaStream_t)stream>>>(
-      img, H, W, tp, score, keep, m01, m10, blur);
+  level_kernel<BLUR, MOM><<<grid, MOM ? NTM : NT, smem, (cudaStream_t)stream>>>(
+      img, H, W, score, keep, blur, m01, m10);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
 
 extern "C" int fast_nms_level_launch(const float* img, int H, int W,
                                      float* score, uint8_t* keep,
                                      void* stream) {
-  return launch<4, true, false, false>(img, H, W, nullptr, score, keep,
-                                       nullptr, nullptr, nullptr, stream);
+  return launch_level<false, false>(img, H, W, score, keep, nullptr, nullptr,
+                                    nullptr, stream);
 }
 
-extern "C" int blur7_level_launch(const float* img, int H, int W,
-                                  const float* taps, float* blur,
+extern "C" int blur7_level_launch(const float* img, int H, int W, float* blur,
                                   void* stream) {
-  return launch<4, false, true, false>(img, H, W, taps, nullptr, nullptr,
-                                       nullptr, nullptr, blur, stream);
+  if (H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  dim3 block(32, 8);
+  dim3 grid((W + BTW - 1) / BTW, (H + BTH - 1) / BTH);
+  blur7_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(img, H, W, blur);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int frontend_level_launch(const float* img, int H, int W,
-                                     const float* taps, int with_moments,
-                                     float* score, uint8_t* keep, float* m01,
-                                     float* m10, float* blur, void* stream) {
+                                     int with_moments, float* score,
+                                     uint8_t* keep, float* m01, float* m10,
+                                     float* blur, void* stream) {
   if (with_moments)
-    return launch<16, true, true, true>(img, H, W, taps, score, keep, m01,
-                                        m10, blur, stream);
-  return launch<4, true, true, false>(img, H, W, taps, score, keep, nullptr,
-                                      nullptr, blur, stream);
+    return launch_level<true, true>(img, H, W, score, keep, blur, m01, m10,
+                                    stream);
+  return launch_level<true, false>(img, H, W, score, keep, blur, nullptr,
+                                   nullptr, stream);
 }

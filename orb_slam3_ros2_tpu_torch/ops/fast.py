@@ -47,11 +47,12 @@ def fast_score(img: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, score, torch.zeros_like(score))
 
 
-def nms3x3(score: torch.Tensor) -> torch.Tensor:
+def nms3x3(score: torch.Tensor, pad_value: float = -1.0) -> torch.Tensor:
     """3x3 NMS: strict local maxima, ties broken in raster order (strict `>`
-    against the earlier neighbours, `>=` against the later ones)."""
+    against the earlier neighbours, `>=` against the later ones). Cells
+    outside the image count as `pad_value` (the kernels' zero padding: 0)."""
     h, w = score.shape
-    pad = torch.nn.functional.pad(score, (1, 1, 1, 1), value=-1.0)
+    pad = torch.nn.functional.pad(score, (1, 1, 1, 1), value=pad_value)
     keep = torch.ones_like(score, dtype=torch.bool)
     for dy in (-1, 0, 1):
         for dx in (-1, 0, 1):

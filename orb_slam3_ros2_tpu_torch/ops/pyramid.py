@@ -58,17 +58,19 @@ def scale_factors(n_levels: int, scale_factor: float) -> np.ndarray:
     return np.asarray([scale_factor ** i for i in range(n_levels)], dtype=np.float32)
 
 
-def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0
-                  ) -> torch.Tensor:
-    """Separable Gaussian blur with reflect padding; img (H, W) float32."""
+def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0,
+                  mode: str = "reflect") -> torch.Tensor:
+    """Separable Gaussian blur, rows then columns; img (H, W) float32.
+    `mode` pads as torch's `pad` does: "reflect", or "constant" (zeros,
+    the kernels' padding)."""
     k = [float(v) for v in _gauss_kernel1d(ksize, sigma)]
     r = ksize // 2
     H, W = img.shape
     x = torch.nn.functional.pad(img[None, None], (0, 0, r, r),
-                                mode="reflect")[0, 0]
+                                mode=mode)[0, 0]
     v = sum(k[i] * x[i:i + H, :] for i in range(ksize))
     y = torch.nn.functional.pad(v[None, None], (r, r, 0, 0),
-                                mode="reflect")[0, 0]
+                                mode=mode)[0, 0]
     return sum(k[i] * y[:, i:i + W] for i in range(ksize))
 
 

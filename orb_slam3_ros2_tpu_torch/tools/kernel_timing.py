@@ -12,8 +12,11 @@ repository at any commit, e.g. unpacked with `git archive` into a
 directory that `.gitignore` lists), built from that checkout's sources:
 
     python3 orb_slam3_ros2_tpu_torch/tools/kernel_timing.py --root DIR \\
-        [--label NAME] [--kernel frontend_packed|pose_opt_fused|fused_match]
-        [--shapes 752x480 1241x376 512x512] [--points 1000 2000]
+        [--label NAME] [--kernel frontend_packed|pose_opt_fused|fused_match|
+                                  fast_nms|frontend_pass|frontend_pass_lite|
+                                  blur7]
+        [--shapes 752x480 1241x376 512x512] [--levels all|0]
+        [--points 1000 2000]
         [--matches track:1000x4096 track:2000x4096 fuse:1000x8192]
 
 and prints one JSON line per shape: device ms per launch of the kernel
@@ -23,8 +26,11 @@ of a rendered frame of each `--shapes`; `pose_opt_fused` on `pose_case`
 at each `--points`; `fused_match` on `match_case` at each `--matches`
 (`track`: 15 px, ratio 0.9, mutual; `fuse`: SearchAndFuse's 4 px,
 max_dist 45, no ratio, not mutual), with each match kernel's device time
-apart and the device time of every op of a call. Run two checkouts in one
-call, in turns (A, B, B, A), to compare them on one card.
+apart and the device time of every op of a call. The per-level kernels
+(`fast_nms`, `frontend_pass`, `frontend_pass_lite`, `blur7`) run on every
+level of each `--shapes` pyramid (`--levels 0`: level 0 alone), each line
+with the device time of every op of a call and their names. Run two
+checkouts in one call, in turns (A, B, B, A), to compare them on one card.
 """
 
 from __future__ import annotations
@@ -57,25 +63,30 @@ def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
-def kernel_events(fn, calls: int = 20) -> dict:
+def kernel_events(fn, calls: int = 20, tries: int = 3) -> dict:
     """{device op name: [µs of each event]} of every kernel, copy and
     memset while fn() runs `calls` times under torch.profiler (after a
-    warm-up)."""
+    warm-up). A window in which the profiler reports no device event at
+    all (it happens now and then) is run again, up to `tries` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     events = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            events.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                events.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us())
+        if events:
+            break
     return events
 
 
@@ -173,6 +184,26 @@ def match_tensors(N: int, M: int, setting: str, seed: int, device):
             uvb), kw
 
 
+LEVEL_KERNELS = ("fast_nms", "frontend_pass", "frontend_pass_lite", "blur7")
+
+
+def level_inputs(shape: str, levels: str, device):
+    """The 8-level pyramid (scale 1.2) of the rendered frame of `shape`
+    ("WxH", seed 1, fx = fy = 0.61 W) on `device`: [(level index,
+    image)] of every level (`levels` "all") or of level 0 ("0")."""
+    import torch
+    from orb_slam3_ros2_tpu_torch.io.synthetic import render_sequence
+    from orb_slam3_ros2_tpu_torch.ops import pyramid as pyr
+
+    width, height = (int(v) for v in shape.split("x"))
+    img = render_sequence(n_frames=1, width=width, height=height,
+                          fx=0.61 * width, fy=0.61 * width, seed=1)[0][0]
+    pyramid = pyr.build_pyramid(torch.from_numpy(img).to(device), 8, 1.2)
+    if levels == "all":
+        return list(enumerate(pyramid))
+    return [(int(levels), pyramid[int(levels)])]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True,
@@ -180,9 +211,11 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default=None)
     ap.add_argument("--kernel", default="frontend_packed",
                     choices=("frontend_packed", "pose_opt_fused",
-                             "fused_match"))
+                             "fused_match") + LEVEL_KERNELS)
     ap.add_argument("--shapes", nargs="+",
                     default=["752x480", "1241x376", "512x512"])
+    ap.add_argument("--levels", default="all", choices=("all", "0"),
+                    help="per-level kernels: every level, or level 0")
     ap.add_argument("--points", nargs="+", type=int, default=[1000, 2000])
     ap.add_argument("--matches", nargs="+",
                     default=["track:1000x4096", "track:2000x4096",
@@ -197,16 +230,13 @@ def main(argv=None) -> int:
         return time_pose(args)
     if args.kernel == "fused_match":
         return time_match(args)
-    from orb_slam3_ros2_tpu_torch.io.synthetic import render_sequence
+    if args.kernel in LEVEL_KERNELS:
+        return time_level(args)
     from orb_slam3_ros2_tpu_torch.ops import frontend_packed as fp
-    from orb_slam3_ros2_tpu_torch.ops import pyramid as pyr
 
     dev = torch.device("cuda", 0)
     for shape in args.shapes:
-        width, height = (int(v) for v in shape.split("x"))
-        img = render_sequence(n_frames=1, width=width, height=height,
-                              fx=0.61 * width, fy=0.61 * width, seed=1)[0][0]
-        levels = pyr.build_pyramid(torch.from_numpy(img).to(dev), 8, 1.2)
+        levels = [level for _, level in level_inputs(shape, "all", dev)]
         dev_ms, ops = device_events(lambda: fp.frontend_pass_packed(levels),
                                     ("frontend_packed_kernel",), calls=50)
         print(json.dumps(dict(
@@ -265,6 +295,29 @@ def time_match(args) -> int:
             all_ops_device_us=sum(map(sum, events.values())) / calls,
             device_ops_of_50_calls={n: len(t) for n, t in events.items()},
             wrapper_ms=time_ms(call))))
+    return 0
+
+
+def time_level(args) -> int:
+    """A per-level kernel of the checkout at --root on each level of each
+    --shapes pyramid: the device time of every op of a call (the call's
+    one kernel), their names, and the wrapper's time."""
+    import torch
+    from orb_slam3_ros2_tpu_torch.ops import frontend_level as fl
+
+    dev = torch.device("cuda", 0)
+    fn = getattr(fl, args.kernel)
+    calls = 50
+    for shape in args.shapes:
+        for index, level in level_inputs(shape, args.levels, dev):
+            events = kernel_events(lambda: fn(level), calls)
+            print(json.dumps(dict(
+                label=args.label or args.root, kernel=args.kernel,
+                shape=shape, level=index, level_shape=list(level.shape),
+                device_ms=(sum(map(sum, events.values())) / calls / 1e3
+                           if events else None),
+                device_ops_of_50_calls={n: len(t) for n, t in events.items()},
+                wrapper_ms=time_ms(lambda: fn(level)))))
     return 0
 
 

@@ -1,7 +1,11 @@
 """Parity of the port's per-level frontend ops (`ops/frontend_level.py`) with
 the JAX Pallas kernels in interpret mode on the CPU, at the JAX oracle tests'
-size and tolerances (`tests/test_pallas_kernels.py`), and of the CUDA kernel
-with its plain version on a GPU."""
+size and tolerances (`tests/test_pallas_kernels.py`): the plain versions on
+the interior, the zero-padding mirror on the whole image; the kernel's launch
+plan; and the CUDA kernels against both on a GPU."""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -12,6 +16,7 @@ from orb_slam3_ros2_tpu.ops import orb_descriptor as jdesc
 from orb_slam3_ros2_tpu.ops import pallas_kernels as pk
 from orb_slam3_ros2_tpu_torch.ops import frontend_level as tfl
 from orb_slam3_ros2_tpu_torch.ops import orb_descriptor as tdesc
+from orb_slam3_ros2_tpu_torch.ops import pyramid as tpyr
 
 # interiors: score/keep/blur agree >= 4 px from the border (zero vs reflect
 # padding), the moment maps >= 16 px (disc radius 15 + 1)
@@ -113,6 +118,103 @@ def test_moment_maps_match_jax(shape):
                                    want, rtol=1e-6, atol=1e-2)
 
 
+# ------------------------------------- the zero-padding mirror, whole image
+
+def _check_whole(got, want, tol, what):
+    np.testing.assert_allclose(_np(got), _np(want), err_msg=what, **tol)
+
+
+def _check_mirror(name, got, want):
+    """got / want: the outputs of `name` (tuples), on the whole image."""
+    if name == "blur7":
+        got, want = (got,), (want,)
+    kinds = dict(fast_nms=("score", "keep"), blur7=("blur",),
+                 frontend_pass=("score", "keep", "moments", "moments", "blur"),
+                 frontend_pass_lite=("score", "keep", "blur"))[name]
+    for kind, g, w in zip(kinds, got, want):
+        if kind == "keep":
+            np.testing.assert_array_equal(_np(g), _np(w), err_msg=name)
+        else:
+            _check_whole(g, w, TOL[kind], f"{name} {kind}")
+
+
+MIRRORS = ("fast_nms", "blur7", "frontend_pass", "frontend_pass_lite")
+
+
+@pytest.mark.parametrize("shape", [(96, 160), (61, 97), (139, 218)])
+@pytest.mark.parametrize("name", MIRRORS)
+def test_zero_mirror_matches_pallas_whole_image(name, shape):
+    """The plain zero-padding mirror (`*_zero`) equals the Pallas kernel in
+    interpret mode on every pixel, the border band included."""
+    img = _img(*shape, seed=11)
+    got = getattr(tfl, f"{name}_zero")(torch.from_numpy(img))
+    want = getattr(pk, name)(jnp.asarray(img), interpret=True)
+    _check_mirror(name, got, want)
+
+
+def test_zero_mirror_and_ref_differ_only_at_the_border():
+    """The mirror and the plain versions agree on the interior; the blur
+    differs at the border (zero against reflect padding)."""
+    img = torch.from_numpy(_img(61, 97, seed=12))
+    z, r = tfl.frontend_pass_zero(img), tfl.frontend_pass_ref(img)
+    _check_score_keep(z[0], z[1], r[0], r[1])
+    _check_moments(z[2], z[3], r[2], r[3])
+    _check_blur(z[4], r[4])
+    assert torch.equal(z[0], r[0]) and torch.equal(z[2], r[2])
+    assert float((z[4] - r[4]).abs().max()) > 0.1
+
+
+# ------------------------------------------------------------ launch plan
+
+# every level of the 752x480, 1241x376 and 512x512 pyramids, and odd shapes
+PLAN_SHAPES = sorted({s for h, w in ((480, 752), (376, 1241), (512, 512))
+                      for s in tpyr.level_shapes(h, w, 8, 1.2)}
+                     | {(1, 1), (3, 5), (15, 95), (16, 96), (17, 97),
+                        (61, 97), (139, 218), (33, 1), (1, 193)})
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_launch_plan_stores_each_cell_once(shape):
+    """Every output cell of score / keep / blur and of m01 / m10 is stored
+    exactly once by the kernel's tiles, groups and moment threads, and at
+    the pyramids' widths most cells go by 16-byte stores."""
+    H, W = shape
+    for moments, (tw, th) in ((False, tfl.LITE_TILE), (True, tfl.MOM_TILE)):
+        counts, mom, vector = tfl.store_counts(H, W, moments=moments)
+        assert counts.shape == (H, W) and (counts == 1).all()
+        assert mom is None if not moments else (mom == 1).all()
+        gx, gy = tfl.launch_grid(H, W, moments)
+        assert (gx - 1) * tw < W <= gx * tw and (gy - 1) * th < H <= gy * th
+        if W >= 96:
+            assert vector > 0.9
+
+
+def test_source_constants_match_the_plan():
+    """The tile and moment tiling in `csrc/frontend_level.cu` are the ones
+    `ops/frontend_level.py` restates, and its compiled-in blur taps are the
+    f32 taps of `pyramid._gauss_kernel1d(7, 2.0)` bit for bit."""
+    src = (Path(tfl.__file__).resolve().parents[1] / "csrc"
+           / "frontend_level.cu").read_text()
+
+    tiles = re.findall(r"constexpr int ([ML])TW = (\d+), [ML]TH = (\d+);",
+                       src)
+    assert {k: (int(w), int(h)) for k, w, h in tiles} == dict(
+        M=tfl.MOM_TILE, L=tfl.LITE_TILE)
+    m = re.search(r"constexpr int MC = (\d+), MK = (\d+);", src)
+    assert (int(m.group(1)), int(m.group(2))) == (tfl.MOM_COLS, tfl.MOM_ROWS)
+    body = re.search(r"c_taps\[7\] = \{([^}]*)\}", src).group(1)
+    taps = np.array([float.fromhex(t.strip().rstrip("f"))
+                     for t in body.split(",")], np.float32)
+    np.testing.assert_array_equal(taps, tpyr._gauss_kernel1d(7, 2.0))
+    u = [int(np.floor(np.sqrt(225 - d * d))) for d in range(16)]
+    chain = re.search(r"constexpr int disc_u\(int d\) \{(.*?)\}", src,
+                      re.S).group(1)
+    assert u == [15, 14, 14, 14, 14, 14, 13, 13, 12, 12, 11, 10, 9, 7, 5, 0]
+    assert "d <= 5 ? 14 : d <= 7 ? 13 : d <= 9 ? 12" in " ".join(chain.split())
+
+
+# -------------------------------------------------------------- on a GPU
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -121,22 +223,71 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(96, 160), (480, 752), (139, 218)])
+@pytest.mark.parametrize("shape", [(96, 160), (480, 752), (139, 218),
+                                   (61, 97), (376, 1241)])
 def test_kernels_match_plain_on_gpu(cuda_device, shape):
+    """Each kernel equals the zero-padding mirror on the whole image and
+    the plain version on the interior, gives the same bits twice, and
+    counts one launch a call."""
     img = torch.from_numpy(_img(*shape, seed=2)).to(cuda_device)
-    n0 = [f.launches for f in (tfl.fast_nms, tfl.blur7, tfl.frontend_pass,
-                               tfl.frontend_pass_lite)]
-    _check_score_keep(*tfl.fast_nms(img), *tfl.fast_nms_ref(img))
-    _check_blur(tfl.blur7(img), tfl.blur7_ref(img))
-    got = tfl.frontend_pass(img)
-    ref = tfl.frontend_pass_ref(img)
-    _check_score_keep(got[0], got[1], ref[0], ref[1])
-    _check_moments(got[2], got[3], ref[2], ref[3])
-    _check_blur(got[4], ref[4])
-    got = tfl.frontend_pass_lite(img)
-    ref = tfl.frontend_pass_lite_ref(img)
-    _check_score_keep(got[0], got[1], ref[0], ref[1])
-    _check_blur(got[2], ref[2])
-    n1 = [f.launches for f in (tfl.fast_nms, tfl.blur7, tfl.frontend_pass,
-                               tfl.frontend_pass_lite)]
-    assert [b - a for a, b in zip(n0, n1)] == [1, 1, 1, 1]
+    fns = [getattr(tfl, name) for name in MIRRORS]
+    n0 = [f.launches for f in fns]
+    got = {name: fn(img) for name, fn in zip(MIRRORS, fns)}
+    again = {name: fn(img) for name, fn in zip(MIRRORS, fns)}
+    n1 = [f.launches for f in fns]
+    assert [b - a for a, b in zip(n0, n1)] == [2, 2, 2, 2]
+    for name in MIRRORS:
+        a, b = got[name], again[name]
+        a, b = ((a,), (b,)) if name == "blur7" else (a, b)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), name
+        _check_mirror(name, got[name], getattr(tfl, f"{name}_zero")(img))
+    _check_score_keep(*got["fast_nms"], *tfl.fast_nms_ref(img))
+    _check_blur(got["blur7"], tfl.blur7_ref(img))
+    full, ref = got["frontend_pass"], tfl.frontend_pass_ref(img)
+    _check_score_keep(full[0], full[1], ref[0], ref[1])
+    _check_moments(full[2], full[3], ref[2], ref[3])
+    _check_blur(full[4], ref[4])
+    lite, ref = got["frontend_pass_lite"], tfl.frontend_pass_lite_ref(img)
+    _check_score_keep(lite[0], lite[1], ref[0], ref[1])
+    _check_blur(lite[2], ref[2])
+
+
+# ------------------------------------------------------ kernel_timing.py
+
+@pytest.mark.parametrize("name", ("fast_nms", "frontend_pass",
+                                  "frontend_pass_lite", "blur7"))
+def test_kernel_timing_takes_the_per_level_kernels(name, capsys):
+    """`tools/kernel_timing.py --kernel <per-level kernel>` parses (and,
+    with no card here, stops for want of one), and its inputs are every
+    level of the rendered frame's 8-level pyramid, or level 0 alone."""
+    from orb_slam3_ros2_tpu_torch.tools import kernel_timing as kt
+
+    with pytest.raises(SystemExit):
+        kt.main(["--root", ".", "--kernel", name, "--levels", "0",
+                 "--shapes", "160x96"])
+    assert "no CUDA device" in capsys.readouterr().err
+    levels = kt.level_inputs("160x96", "all", "cpu")
+    assert [i for i, _ in levels] == list(range(8))
+    assert [tuple(l.shape) for _, l in levels] == tpyr.level_shapes(
+        96, 160, 8, 1.2)
+    (i0, l0), = kt.level_inputs("160x96", "0", "cpu")
+    assert i0 == 0 and torch.equal(l0, levels[0][1])
+    out = getattr(tfl, name)(l0)  # on the CPU: the plain version
+    ref = getattr(tfl, f"{name}_ref")(l0)
+    out, ref = ((out,), (ref,)) if name == "blur7" else (out, ref)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+def test_level_ablation_variants_apply():
+    """Each variant of `tools/level_ablation.py` is an edit that the source
+    still takes, and joined names apply their edits in turn."""
+    from orb_slam3_ros2_tpu_torch.ops import cuda_lib
+    from orb_slam3_ros2_tpu_torch.tools import level_ablation as la
+
+    src = (cuda_lib.CSRC / "frontend_level.cu").read_text()
+    out = la.variants(src)
+    assert out["full"] == src and len(out) == 1 + len(la.EDITS)
+    assert all(text != src for name, text in out.items() if name != "full")
+    assert "constexpr int LTW = 64, LTH = 8;" in out["lite_64x8"]
+    both = la.variant(src, "stage_only+no_m10")
+    assert "if (n > 0) return;" in both and la.M10_ADD not in both
