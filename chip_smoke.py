@@ -42,11 +42,14 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    and 512x512 frames' pyramids (the first frames of phases 3, 5 and 7),
    against the zero-padding mirror (`ops/frontend_level.py` `*_zero`, the
    Pallas kernels' function) on the whole image and against their plain
-   versions on the interior, at the JAX oracle tests' tolerances; two
+   versions on the interior, at the JAX oracle tests' tolerances (`blur7`
+   equal to the mirror bit for bit); two
    launches on one input must give the same bits, a call must dispatch
    only `torch.empty` and enqueue its one kernel alone; one call of each
    timed on level 0 of 752x480; `blur7` beside `conv2d` with the same 7x7
-   taps (its library yardstick).
+   taps (its library yardstick) and beside the copy floor, the device time
+   of one elementwise kernel (`torch.add(level, 0.0, out=out)`) that reads
+   and writes the same bytes.
    For every kernel phases 2 and 2b print its device time per launch
    (torch.profiler, the kernel's own device events), its bound (the larger
    of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s, H100
@@ -405,7 +408,7 @@ def print_times(label: str, r: dict) -> None:
     dev = ("not measured" if r["device_ms"] is None
            else f"{r['device_ms']:.5f} ms")
     extra = "".join(f", {k} {r[k]:.5f} ms" for k in
-                    ("plain_ms", "library_ms", "floor_ms")
+                    ("plain_ms", "library_ms", "floor_ms", "copy_floor_ms")
                     if r.get(k) is not None)
     print(f"{label}: device {dev} per launch, bound {r['bound_ms']:.5f} ms "
           f"({r['bound_by']}: {r['bytes']:.0f} B, {r['ops']:.0f} ops), "
@@ -713,12 +716,15 @@ LEVEL_CASES = (
 
 
 def _check_level(name, kinds, got, zero, ref, tag, err):
-    """One wrapper's outputs on one level against the mirror (whole image)
-    and the plain version (interior)."""
+    """One wrapper's outputs on one level against the mirror (whole image;
+    `blur7` bit for bit) and the plain version (interior)."""
     tol = dict(s=(0.0, LEVEL_SCORE_ATOL), b=(LEVEL_BLUR_RTOL, LEVEL_BLUR_ATOL),
                m=(LEVEL_MOM_RTOL, LEVEL_MOM_ATOL))
     for kind, g, z, r in zip(kinds, got, zero, ref):
         what = f"{name} {kind} {tag}"
+        if name == "blur7":
+            require(g.equal(z), f"{what}: differs from the mirror at "
+                    f"{int((g != z).sum())} cells")
         if kind == "k":
             require(bool((g == z).all()), f"{what}: keep differs from the "
                     f"mirror at {int((g != z).sum())} cells")
@@ -738,7 +744,8 @@ def check_frontend_level(images, dev, record):
     import torch
     from orb_slam3_ros2_tpu_torch.ops import frontend_level as fl
     from orb_slam3_ros2_tpu_torch.ops import pyramid as pyr
-    from orb_slam3_ros2_tpu_torch.tools.kernel_timing import (device_events,
+    from orb_slam3_ros2_tpu_torch.tools.kernel_timing import (copy_floor_ms,
+                                                              device_events,
                                                               time_ms)
 
     pyramids = [pyr.build_pyramid(torch.from_numpy(img).to(dev), 8, 1.2)
@@ -802,6 +809,8 @@ def check_frontend_level(images, dev, record):
     record["blur7"]["library_device_ms"] = device_events(conv, ("",))[0]
     record["blur7"]["library_max_abs_diff"] = (
         conv() - fl.blur7(level0)).abs().max().item()
+    # and its copy floor: one elementwise pass over the level's bytes
+    record["blur7"]["copy_floor_ms"] = copy_floor_ms(level0, calls=20)
     lite = record.pop("frontend_pass_lite")
     record["frontend_pass"]["launches"] += lite["launches"]
     record["frontend_pass"]["max_abs_err"] = max(

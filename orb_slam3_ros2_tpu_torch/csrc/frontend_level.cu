@@ -18,6 +18,9 @@
 // of fast_nms' 6.3 at 752x480 (NVIDIA H100 80GB HBM3, 700.00 W;
 // tools/level_ablation.py). With the moment maps, shared memory: ~60 loads
 // a pixel for the gather plus the prefix sums, beside the score warps'.
+// blur7 moves 8 B a pixel (0.86 us at 752x480); a level that small is too
+// little to keep the memory busy across one load's latency, so its time is
+// the launch, one exposed load latency and the serial work after it.
 //
 // What the design does about it:
 // - Tiles: 64x16 outputs for fast_nms and the lite pass (360 blocks of 256
@@ -54,7 +57,11 @@
 //   ops/pyramid.py _gauss_kernel1d(7, 2.0)), summed in the plain version's
 //   order; the library is built with --fmad=false, so the blur is
 //   bit-identical to the plain zero-padded blur.
-// - blur7 keeps its earlier design (32x16 tiles, 256 threads).
+// - blur7 (blur7_kernel, below) takes no barrier and no shared memory:
+//   a warp loads its column strip into registers, all rows at once, and
+//   takes the horizontal pass's neighbours from the lanes beside it by
+//   shuffles.
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -455,48 +462,90 @@ level_kernel(const float* __restrict__ img, int H, int W,
   }
 }
 
-// blur7: the earlier design, one 32x16 tile a block of 32x8 threads.
-constexpr int BTW = 32, BTH = 16, BHALO = 4;
+// blur7: a warp owns a strip of BSW = 26 output columns and BRW rows, one
+// column a lane; lanes 0-2 and 29-31 hold the 3-px halo on either side. A
+// block stacks BNW warps down the strip (BTH rows). No shared memory and no
+// barrier:
+// - loads: a lane issues all BRW + 6 rows of its column before it uses any;
+// - the vertical pass runs on those registers; the horizontal pass takes
+//   the 3 vertical sums it needs on either side from the lanes beside it
+//   by shuffles;
+// - stores: each of lanes 3-28 its own cell of a row;
+// - a block whose loads all fall inside the image (the interior) runs
+//   without a bounds test; a block at the image's edge tests every load
+//   and store and loads zero outside;
+// - offsets are 32-bit: with 64-bit ones each warp's chain took ~0.3 us
+//   more at every level size.
+// The plan is chosen by measurement (tools/level_ablation.py, which also
+// holds the variants with several columns a lane and with 16-byte loads
+// and stores; NVIDIA H100 80GB HBM3, 700.00 W): 8 rows a warp, 2 warps a
+// block (26x16 tiles, 870 blocks at 752x480): 2.45 us at 752x480's level
+// 0, against 2.81-2.97 with 4 columns a lane and 3.03-3.33 with 16-byte
+// groups; a lane's serial work (its outputs) sets the time of the small
+// levels, and the bounds tests and the 16-byte realignment cost more than
+// they save.
+constexpr int BRW = 8, BNW = 2;
+constexpr int BSW = 32 - 6, BTH = BNW * BRW;
 
-__global__ void __launch_bounds__(256)
-blur7_kernel(const float* __restrict__ img, int H, int W,
-             float* __restrict__ blur_out) {
-  constexpr int SH = BTH + 2 * BHALO;
-  constexpr int SW = BTW + 2 * BHALO;
-  __shared__ float s_img[SH][SW];
-  __shared__ float s_v[BTH][BTW + 6];
+// cell (y, x), zero outside the image (EDGE: tested); 32-bit offsets, as
+// the launch admits fewer than 2^31 cells
+template <bool EDGE>
+__device__ __forceinline__ float load1(const float* img, int y, int x, int H,
+                                       int W) {
+  if constexpr (!EDGE) return __ldg(img + y * W + x);
+  return (y >= 0 && y < H && x >= 0 && x < W) ? __ldg(img + y * W + x)
+                                              : 0.f;
+}
 
-  const int x0 = blockIdx.x * BTW;
-  const int y0 = blockIdx.y * BTH;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthr = blockDim.x * blockDim.y;
+// One warp's strip: columns x0 .. x0 + BSW - 1, rows y0 .. y0 + BRW - 1
+template <bool EDGE>
+__device__ __forceinline__ void blur7_warp(const float* __restrict__ img,
+                                           int H, int W,
+                                           float* __restrict__ blur_out,
+                                           int x0, int y0, int lane) {
+  constexpr int NR = BRW + 6;  // rows a lane loads
+  const unsigned full = 0xffffffffu;
+  const int x = x0 + lane - 3;  // the lane's column
+  const bool owner = lane >= 3 && lane < 3 + BSW && (!EDGE || x < W);
 
-  for (int i = tid; i < SH * SW; i += nthr) {
-    int ly = i / SW, lx = i % SW;
-    int gy = y0 - BHALO + ly, gx = x0 - BHALO + lx;
-    s_img[ly][lx] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
-                        ? img[(size_t)gy * W + gx] : 0.f;
-  }
-  __syncthreads();
-  // vertical pass: output rows of the tile, columns x0-3 .. x0+BTW+2
-  for (int i = tid; i < BTH * (BTW + 6); i += nthr) {
-    int ly = i / (BTW + 6), lx = i % (BTW + 6);
+  float a[NR];  // a[r]: row y0 - 3 + r
+#pragma unroll
+  for (int r = 0; r < NR; ++r) a[r] = load1<EDGE>(img, y0 - 3 + r, x, H, W);
+
+#pragma unroll
+  for (int i = 0; i < BRW; ++i) {
+    // vertical pass, in the plain version's order: 0 + t0 a0 + t1 a1 + ...
     float v = 0.f;
 #pragma unroll
-    for (int t = 0; t < 7; ++t)
-      v += c_taps[t] * s_img[ly + BHALO - 3 + t][lx + BHALO - 3];
-    s_v[ly][lx] = v;
-  }
-  __syncthreads();
-  for (int i = tid; i < BTH * BTW; i += nthr) {
-    int ly = i / BTW, lx = i % BTW;
-    int gy = y0 + ly, gx = x0 + lx;
-    if (gy >= H || gx >= W) continue;
-    float b = 0.f;
+    for (int k = 0; k < 7; ++k) v += c_taps[k] * a[i + k];
+    // horizontal pass over columns x - 3 .. x + 3, from the lanes beside
+    // (shuffled in the order the sum takes them)
+    float w[7];
 #pragma unroll
-    for (int t = 0; t < 7; ++t) b += c_taps[t] * s_v[ly][lx + t];
-    blur_out[(size_t)gy * W + gx] = b;
+    for (int k = 0; k < 7; ++k)
+      w[k] = k < 3   ? __shfl_up_sync(full, v, 3 - k)
+             : k > 3 ? __shfl_down_sync(full, v, k - 3)
+                     : v;
+    float o = 0.f;
+#pragma unroll
+    for (int k = 0; k < 7; ++k) o += c_taps[k] * w[k];
+    const int y = y0 + i;
+    if (owner && (!EDGE || y < H)) blur_out[y * W + x] = o;
   }
+}
+
+__global__ void __launch_bounds__(32 * BNW)
+blur7_kernel(const float* __restrict__ img, int H, int W,
+             float* __restrict__ blur_out) {
+  const int x0 = blockIdx.x * BSW, yb = blockIdx.y * BTH;
+  const int y0 = yb + (threadIdx.x >> 5) * BRW, lane = threadIdx.x & 31;
+  // the block's loads: columns x0 - 3 .. x0 + BSW + 2, rows yb - 3 ..
+  // yb + BTH + 2
+  const bool edge = x0 < 3 || x0 + BSW + 3 > W || yb < 3 || yb + BTH + 3 > H;
+  if (edge)
+    blur7_warp<true>(img, H, W, blur_out, x0, y0, lane);
+  else
+    blur7_warp<false>(img, H, W, blur_out, x0, y0, lane);
 }
 
 template <bool BLUR, bool MOM>
@@ -533,10 +582,10 @@ extern "C" int fast_nms_level_launch(const float* img, int H, int W,
 
 extern "C" int blur7_level_launch(const float* img, int H, int W, float* blur,
                                   void* stream) {
-  if (H < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  dim3 block(32, 8);
-  dim3 grid((W + BTW - 1) / BTW, (H + BTH - 1) / BTH);
-  blur7_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(img, H, W, blur);
+  if (H < 1 || W < 1 || (long long)H * W > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((W + BSW - 1) / BSW, (H + BTH - 1) / BTH);
+  blur7_kernel<<<grid, 32 * BNW, 0, (cudaStream_t)stream>>>(img, H, W, blur);
   return (int)cudaGetLastError();
 }
 

@@ -21,8 +21,9 @@ which the tests and `chip_smoke.py` hold the kernels to; the `*_ref`
 versions agree with them on the interior only (reflect-padded blur, NMS
 against -1 outside), within 4 px of the border for score, keep and blur.
 
-`launch_grid` and `store_counts` restate the kernel's launch plan (tile,
-grid, which thread stores which cell) for the CPU tests.
+`launch_grid` and `store_counts` restate the kernels' launch plans (tile,
+grid, which thread stores which cell; blur7's strips and lanes too) for the
+CPU tests.
 """
 
 from __future__ import annotations
@@ -48,9 +49,13 @@ _SIGNATURES = {
 # csrc/frontend_level.cu: the output tile (width, height) of a block with
 # the moment maps (MTW x MTH) and without (LTW x LTH), and the outputs a
 # moment thread owns (MC columns x MK rows of one map, 128 threads a map
-# and tile); blur7 keeps its own 32x16 tiles
+# and tile); blur7's rows a warp (BRW) and warps a block (BNW): a warp's
+# strip is one column a lane less the 3 lanes of halo on either side, the
+# block's tile that strip by BNW x BRW rows
+BLUR_ROWS, BLUR_WARPS = 8, 2
 MOM_TILE = (96, 16)
 LITE_TILE = (64, 16)
+BLUR_TILE = (32 - 6, BLUR_WARPS * BLUR_ROWS)
 MOM_COLS, MOM_ROWS = 3, 4
 
 
@@ -120,31 +125,46 @@ def frontend_pass_lite_zero(img: torch.Tensor):
 
 # ------------------------------------------------------------ launch plan
 
-def launch_grid(H: int, W: int, moments: bool = False):
-    """(blocks across, blocks down) of a per-level launch (not blur7)."""
-    tw, th = MOM_TILE if moments else LITE_TILE
+def _tile(moments: bool, blur7: bool):
+    return BLUR_TILE if blur7 else MOM_TILE if moments else LITE_TILE
+
+
+def launch_grid(H: int, W: int, moments: bool = False, blur7: bool = False):
+    """(blocks across, blocks down) of a per-level launch: `blur7`'s, or
+    the level kernel's with or without `moments`."""
+    tw, th = _tile(moments, blur7)
     return -(-W // tw), -(-H // th)
 
 
-def store_counts(H: int, W: int, moments: bool = False):
-    """How many times a launch (`frontend_pass` with `moments`, else
-    `fast_nms` / `frontend_pass_lite`) stores each cell of score / keep /
-    blur and, with `moments`, of m01 / m10, as (H, W) int arrays,
+def store_counts(H: int, W: int, moments: bool = False, blur7: bool = False):
+    """How many times a launch (`blur7`; `frontend_pass` with `moments`,
+    else `fast_nms` / `frontend_pass_lite`) stores each cell of score /
+    keep / blur and, with `moments`, of m01 / m10, as (H, W) int arrays,
     restating the kernel's stores: a tile row's cells [x0, min(x0 + TW,
     W)) in groups of 4 on the output's 16-byte grid (a group that starts
-    at x0 - ((y W + x0) & 3) + 4 g), and a moment thread's MC x MK outputs
-    of its map inside the image (the counts of one map). Also returns the share of score cells written by
+    at x0 - ((y W + x0) & 3) + 4 g; blur7: each of a warp's lanes 3-28 its
+    own column of the warp's BRW rows, cell by cell), and a moment
+    thread's MC x MK outputs of its map inside the image (the counts of
+    one map). Also returns the share of score (blur) cells written by
     16-byte stores."""
-    tw, th = MOM_TILE if moments else LITE_TILE
-    gx, gy = launch_grid(H, W, moments)
+    tw, th = _tile(moments, blur7)
+    gx, gy = launch_grid(H, W, moments, blur7)
     ng = tw // 4 + 1
     counts = np.zeros((H, W), np.int64)
     vector = 0
     y = np.arange(H)[:, None]
+    # blur7's rows: block row b, warp w, row i
+    b, w, i = np.ix_(np.arange(gy), np.arange(BLUR_WARPS), np.arange(BLUR_ROWS))
+    yb = (b * th + w * BLUR_ROWS + i).ravel()
+    yb = yb[yb < H]
     for bx in range(gx):
         x0 = bx * tw
         xe = min(x0 + tw, W)
         xs0 = x0 - ((y * W + x0) & 3)
+        if blur7:
+            x = x0 + np.arange(32)[3:29] - 3  # lanes 3-28
+            np.add.at(counts, np.ix_(yb, x[x < xe]), 1)
+            continue
         for g in range(ng):
             xs = xs0 + 4 * g  # (H, 1): each row's group start
             lo = np.maximum(xs, x0)

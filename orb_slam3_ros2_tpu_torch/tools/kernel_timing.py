@@ -29,7 +29,9 @@ max_dist 45, no ratio, not mutual), with each match kernel's device time
 apart and the device time of every op of a call. The per-level kernels
 (`fast_nms`, `frontend_pass`, `frontend_pass_lite`, `blur7`) run on every
 level of each `--shapes` pyramid (`--levels 0`: level 0 alone), each line
-with the device time of every op of a call and their names. Run two
+with the device time of every op of a call and their names; `blur7`'s also
+with the copy floor, the device time of one elementwise kernel that reads
+and writes the same bytes (`copy_floor_ms`). Run two
 checkouts in one call, in turns (A, B, B, A), to compare them on one card.
 """
 
@@ -298,10 +300,24 @@ def time_match(args) -> int:
     return 0
 
 
+def copy_floor_ms(level, calls: int = 50):
+    """Device ms of one elementwise kernel that reads and writes the bytes
+    that a per-level blur reads and writes, `torch.add(level, 0.0,
+    out=out)`: the floor of one launch over that data (profiler, `calls`
+    calls), or None if the profiler saw no event. Not `out.copy_(level)`,
+    a DMA copy, which takes longer than the blur itself at 752x480."""
+    import torch
+
+    out = torch.empty_like(level)
+    events = kernel_events(lambda: torch.add(level, 0.0, out=out), calls)
+    return sum(map(sum, events.values())) / calls / 1e3 if events else None
+
+
 def time_level(args) -> int:
     """A per-level kernel of the checkout at --root on each level of each
     --shapes pyramid: the device time of every op of a call (the call's
-    one kernel), their names, and the wrapper's time."""
+    one kernel), their names, and the wrapper's time; for blur7 also the
+    copy floor of the level."""
     import torch
     from orb_slam3_ros2_tpu_torch.ops import frontend_level as fl
 
@@ -311,13 +327,16 @@ def time_level(args) -> int:
     for shape in args.shapes:
         for index, level in level_inputs(shape, args.levels, dev):
             events = kernel_events(lambda: fn(level), calls)
-            print(json.dumps(dict(
+            row = dict(
                 label=args.label or args.root, kernel=args.kernel,
                 shape=shape, level=index, level_shape=list(level.shape),
                 device_ms=(sum(map(sum, events.values())) / calls / 1e3
                            if events else None),
                 device_ops_of_50_calls={n: len(t) for n, t in events.items()},
-                wrapper_ms=time_ms(lambda: fn(level)))))
+                wrapper_ms=time_ms(lambda: fn(level)))
+            if args.kernel == "blur7":
+                row["copy_floor_ms"] = copy_floor_ms(level, calls)
+            print(json.dumps(row))
     return 0
 
 

@@ -176,17 +176,85 @@ PLAN_SHAPES = sorted({s for h, w in ((480, 752), (376, 1241), (512, 512))
 @pytest.mark.parametrize("shape", PLAN_SHAPES)
 def test_launch_plan_stores_each_cell_once(shape):
     """Every output cell of score / keep / blur and of m01 / m10 is stored
-    exactly once by the kernel's tiles, groups and moment threads, and at
-    the pyramids' widths most cells go by 16-byte stores."""
+    exactly once by the level kernel's tiles, groups and moment threads and
+    by blur7's strips and lanes, and at the pyramids' widths most cells go
+    by 16-byte stores."""
     H, W = shape
-    for moments, (tw, th) in ((False, tfl.LITE_TILE), (True, tfl.MOM_TILE)):
-        counts, mom, vector = tfl.store_counts(H, W, moments=moments)
+    for moments, blur7, (tw, th) in ((False, False, tfl.LITE_TILE),
+                                     (True, False, tfl.MOM_TILE),
+                                     (False, True, tfl.BLUR_TILE)):
+        counts, mom, vector = tfl.store_counts(H, W, moments=moments,
+                                               blur7=blur7)
         assert counts.shape == (H, W) and (counts == 1).all()
         assert mom is None if not moments else (mom == 1).all()
-        gx, gy = tfl.launch_grid(H, W, moments)
+        gx, gy = tfl.launch_grid(H, W, moments, blur7)
         assert (gx - 1) * tw < W <= gx * tw and (gy - 1) * th < H <= gy * th
-        if W >= 96:
+        if blur7:
+            assert vector == 0
+        elif W >= 96:
             assert vector > 0.9
+
+
+def _blur7_lanes(img, rows=tfl.BLUR_ROWS):
+    """blur7_kernel restated over every warp and lane at once (numpy f32):
+    each lane's column of `rows` + 6 rows, loaded cell by cell (zero
+    outside); the vertical pass; the 3 vertical sums either side from the
+    lanes beside it (a shuffle out of the warp reads the lane's own); each
+    of lanes 3-28 stores its cell. Returns the output and how often each
+    cell was stored."""
+    H, W = img.shape
+    strip = 32 - 6
+    taps = tpyr._gauss_kernel1d(7, 2.0)
+    lane = np.arange(32)
+    y0 = rows * np.arange(-(-H // rows))[:, None, None]  # (bands, 1, 1)
+    x0 = strip * np.arange(-(-W // strip))[None, :, None]  # (1, strips, 1)
+    x = x0 + lane - 3  # a lane's column
+    shape = (y0.shape[0], x0.shape[1], 32)
+
+    def load(y):
+        yy, xx = np.broadcast_arrays(y, x)
+        ok = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
+        return np.where(ok, img[yy.clip(0, H - 1), xx.clip(0, W - 1)],
+                        np.float32(0))
+
+    def shfl(v, d):  # lane l reads lane l + d; out of range: its own
+        src = lane + d
+        return np.where((src >= 0) & (src < 32), v[..., src.clip(0, 31)], v)
+
+    a = [load(y0 - 3 + r) for r in range(rows + 6)]
+    out = np.zeros((H, W), np.float32)
+    count = np.zeros((H, W), np.int64)
+    xs = np.broadcast_to(x, shape)
+    for i in range(rows):
+        v = np.float32(0)
+        for k in range(7):
+            v = v + taps[k] * a[i + k]
+        o = np.float32(0)
+        for k in range(7):
+            o = o + taps[k] * shfl(v, k - 3)
+        y = np.broadcast_to(y0 + i, shape)
+        hit = (y < H) & (lane >= 3) & (lane < 29) & (xs < W)
+        out[y[hit], xs[hit]] = o[hit]
+        np.add.at(count, (y[hit], xs[hit]), 1)
+    return out, count
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (3, 5), (33, 1), (61, 97),
+                                   (40, 130), (37, 243), (50, 262),
+                                   (33, 522), (21, 627), (19, 1241)])
+@pytest.mark.parametrize("rows", [tfl.BLUR_ROWS, 3, 16])
+def test_blur7_lane_plan_equals_zero_mirror(shape, rows):
+    """blur7's loads, shuffles and stores, restated lane by lane on the
+    CPU (the shipped rows a warp and two others), store each cell once and
+    give the zero-padding mirror bit for bit (a signed zero included) at
+    widths of every residue mod 4."""
+    rng = np.random.default_rng(sum(shape))
+    img = (rng.random(shape) * 255).astype(np.float32)
+    img[rng.random(shape) < 0.05] = -0.0
+    got, count = _blur7_lanes(img, rows)
+    want = tfl.blur7_zero(torch.from_numpy(img)).numpy()
+    assert (count == 1).all()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 def test_source_constants_match_the_plan():
@@ -200,6 +268,10 @@ def test_source_constants_match_the_plan():
                        src)
     assert {k: (int(w), int(h)) for k, w, h in tiles} == dict(
         M=tfl.MOM_TILE, L=tfl.LITE_TILE)
+    m = re.search(r"constexpr int BRW = (\d+), BNW = (\d+);", src)
+    assert m.groups() == (str(tfl.BLUR_ROWS), str(tfl.BLUR_WARPS))
+    assert "constexpr int BSW = 32 - 6, BTH = BNW * BRW;" in src
+    assert tfl.BLUR_TILE == (32 - 6, tfl.BLUR_WARPS * tfl.BLUR_ROWS)
     m = re.search(r"constexpr int MC = (\d+), MK = (\d+);", src)
     assert (int(m.group(1)), int(m.group(2))) == (tfl.MOM_COLS, tfl.MOM_ROWS)
     body = re.search(r"c_taps\[7\] = \{([^}]*)\}", src).group(1)
@@ -252,6 +324,26 @@ def test_kernels_match_plain_on_gpu(cuda_device, shape):
     _check_blur(lite[2], ref[2])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(480, 752), (400, 627), (333, 522),
+                                   (376, 1241), (1, 1), (3, 5), (33, 1)])
+def test_blur7_equals_zero_mirror_on_gpu(cuda_device, shape):
+    """blur7 equals the zero-padding mirror bit for bit at widths of every
+    residue mod 4 and at odd shapes, on a level and on a view of one that
+    starts 4 bytes into its buffer (off the 16-byte grid at every width),
+    one launch a call."""
+    H, W = shape
+    rng = np.random.default_rng(sum(shape))
+    big = (rng.random(H * W + 1) * 255).astype(np.float32)
+    big = torch.from_numpy(big).to(cuda_device)
+    n0 = tfl.blur7.launches
+    for img in (big[:-1].view(H, W), big[1:].view(H, W)):
+        got = tfl.blur7(img)
+        assert torch.equal(got, tfl.blur7_zero(img))
+        assert torch.equal(got, tfl.blur7(img))
+    assert tfl.blur7.launches - n0 == 4
+
+
 # ------------------------------------------------------ kernel_timing.py
 
 @pytest.mark.parametrize("name", ("fast_nms", "frontend_pass",
@@ -289,5 +381,16 @@ def test_level_ablation_variants_apply():
     assert out["full"] == src and len(out) == 1 + len(la.EDITS)
     assert all(text != src for name, text in out.items() if name != "full")
     assert "constexpr int LTW = 64, LTH = 8;" in out["lite_64x8"]
+    assert "constexpr int BRW = 4, BNW = 8;" in out["blur_c1_r4_w8"]
+    for name, plan in (("blur_c2_r2_w8", "constexpr int BC = 2, BRW = 2, "
+                        "BNW = 8;\nconstexpr bool BVEC = false;"),
+                       ("blur_c4_r8_w4_vec", "constexpr int BC = 4, BRW = 8, "
+                        "BNW = 4;\nconstexpr bool BVEC = true;")):
+        text = out[name]  # the shipped kernel replaced by the plan's
+        assert plan in text and "blur7_plan_launch(img, H, W, blur" in text
+        assert "constexpr int BSW = 32 - 6," not in text
+        assert text.count("__global__") == src.count("__global__")
+    assert "BVEC" not in src and "load4" not in src
+    assert la.BLUR_PLAN not in la.BLUR_PLANS and len(la.BLUR_PLANS) >= 6
     both = la.variant(src, "stage_only+no_m10")
     assert "if (n > 0) return;" in both and la.M10_ADD not in both
