@@ -4,7 +4,8 @@ plain version, the per-frame tracking slice, the System in its
 monocular, stereo, RGB-D and fisheye-stereo configurations, relocalization
 and the Atlas on the stock EuRoC settings, loop closing, and the inertial
 sensors on the published EuRoC mono-inertial settings, the sharded
-solvers, map-to-map ICP and the multi-process sessions.
+solvers, map-to-map ICP, the multi-process sessions and the pipelined
+mode.
 
     python3 chip_smoke.py
 
@@ -200,11 +201,31 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    2 shards, every rank on the one card, gloo between them, held to
    tests/test_distributed_session.py's and test_live_session.py's bars;
    each rank's tracking ms per frame and kernel launches are printed.
+13. Pipelined mode (`System(pipelined=True)`): 13a on phase 4's clip and
+   settings (752x480, 1000 features, a 256 x 8192 map, 40 frames), held
+   to phase 4's bars; 13b IMU_MONOCULAR on phase 10's clip and settings
+   (120 frames, the 200 Hz IMU), held to `system_run.vi_failures`' bars,
+   and the frames that took the pipelined path (in flight after their
+   call) at least 90% of the JAX System's on the same clip on a CPU
+   (`VI_PIPELINED_JAX_CPU`). Each run has its own loop (`pipe_loop`): a
+   host clock around each call and no synchronize, one synchronize and
+   the flush at the end. On every frame whose device pose chain is up,
+   the dispatch half runs under `torch.cuda.set_sync_debug_mode("error")`
+   (any host sync fails the phase); every summary read from its pinned
+   buffer must equal a blocking read of the same device tensor bit for
+   bit; the frontend kernel launches once a frame, the match kernel 3
+   times a tracked frame plus once a SearchAndFuse, the pose kernel
+   twice a tracked frame. Prints the per-call ms over the second half
+   (p50 / p95 / max, calls over 33 ms) beside the synchronous System on
+   the same clip in turns (host times drift between the phases of one
+   process) and beside phases 4 and 10, the `summary_fetch` and
+   `mapping_fused` stage medians, the host syncs (reported by sync debug
+   mode "warn") and summary waits a frame, and the dropped IMU samples.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
-per-kernel JSON record (`launches`: the sum over the runs of phases 3-10b,
-each counted from 0 around its run, of phase 11's four replays and of
-phase 12b; the per-level kernels: phase 2b; `ms`:
+per-kernel JSON record (`launches`: the sum over the runs of phases 3-10b
+and 13, each counted from 0 around its run, of phase 11's four replays and
+of phase 12b; the per-level kernels: phase 2b; `ms`:
 device time per launch at the main-path shape, `wrapper_ms` the wrapper's
 time there), the line before that the card, and the one before that the
 phases' results. Imports nothing of JAX.
@@ -296,6 +317,11 @@ POSE_DECISION_NOISE = 1e-5
 VI_JAX_CPU = dict(vi_init_frame=41, n_kf=21, n_tracked=118,
                   bg_err=0.000622, ate_m=0.025305, scale_err_end=0.056465,
                   umeyama_scale=1.019000, length_ratio=1.132791)
+# phase 13b: the frames of that clip that took the pipelined path in the
+# JAX System(pipelined=True) on a CPU (`scripts/jax_reference_runs.py
+# --config euroc_vi_pipelined`: a frame in flight after its call, as
+# `bench.py` counts them)
+VI_PIPELINED_JAX_CPU = 78
 # phase 10b: the JAX System fed the feature sets that the card extracts
 # from the stereo-inertial clip (`tests/data/stereo_vi_card_features.npz`,
 # written by `tools/vi_rig_diff.py --save-features` on an H100; read by
@@ -312,6 +338,8 @@ VI_RIGS_JAX_CPU = dict(
                                length_ratio=1.071635),
     synth_rgbd_inertial=dict(bg_err=0.003607, ate_m=0.016817,
                              length_ratio=1.018267))
+# phase 13: the frame budget of a 30 frames/s camera (PERF.md §2)
+FRAME_BUDGET_MS = 33.0
 # phase 9b: the corridor's corrected keyframe centres on the card against
 # the same run on the CPU (m)
 CORRIDOR_CENTRE_M = 1e-3
@@ -1065,7 +1093,8 @@ def drive(slam, step, n_frames: int, label: str,
         frame_ms=statistics.median(plain_ms) if plain_ms else None,
         keyframe_frame_ms=statistics.median(kf_ms) if kf_ms else None,
         insert_ms=statistics.median(insert_ms) if insert_ms else None,
-        init_frame_ms=frame_ms[init_at] if tracked else None)
+        init_frame_ms=frame_ms[init_at] if tracked else None,
+        frame_ms_tail=tail_stats(frame_ms))
     print(f"{label}: init at frame {init_at}, {out['n_kf']} keyframes "
           f"({n_ins} inserted after init), {out['n_lm']} landmarks "
           f"({out['lm_slots_used']} slots used, compact_landmarks ran "
@@ -2413,6 +2442,269 @@ def run_mesh(dev, record, cloud, corridor):
     return out
 
 
+# ----------------------------------------------------------- phase 13
+
+def tail_stats(ms: list) -> dict:
+    """p50 / p95 / max of the second half of a run's per-call ms, and the
+    calls of that half over the 33 ms frame budget."""
+    tail = np.asarray(ms[len(ms) // 2:], np.float64)
+    return dict(p50=float(np.percentile(tail, 50)),
+                p95=float(np.percentile(tail, 95)), max=float(tail.max()),
+                over_33ms=int((tail > FRAME_BUDGET_MS).sum()),
+                n=int(tail.size))
+
+
+def pipe_loop(slam, step, n_frames: int, label: str) -> dict:
+    """Phase 13's loop: `step(k)` (one `track_monocular` call) for every
+    frame with a host clock around the call and no synchronize, then one
+    synchronize and the flush (`get_trajectory`). Every kernel counter
+    counts from 0, `track_frame` and SearchAndFuse calls are counted, the
+    dispatch half of each frame whose device pose chain is already up runs
+    under `torch.cuda.set_sync_debug_mode("error")`, the rest of the call
+    under "warn" (each host sync it reports is a blocking turnaround), and
+    every summary read from its pinned buffer is kept beside its device
+    tensor for a blocking read after the run. Raises PhaseError unless
+    each pinned read equals its blocking read bit for bit, the frontend
+    launched once a frame, the match kernel 3 times a tracked frame plus
+    once a SearchAndFuse, and the pose kernel twice a tracked frame."""
+    import warnings
+
+    import torch
+    from orb_slam3_ros2_tpu_torch.backend import pose_opt_fused
+    from orb_slam3_ros2_tpu_torch.frontend import tracking as trk
+    from orb_slam3_ros2_tpu_torch.ops import frontend_packed as fp
+    from orb_slam3_ros2_tpu_torch.ops import fused_match as fm
+
+    counters = (fp.frontend_pass_packed, fm.match_window,
+                pose_opt_fused.optimize_pose_fused)
+    track_calls, fuse_deltas, reads, checked = [], [], [], []
+    track_frame, fuse = trk.track_frame, trk.fuse_map_points
+
+    def counted_track(*args, **kwargs):
+        track_calls.append(1)
+        return track_frame(*args, **kwargs)
+
+    def counted_fuse(*args, **kwargs):
+        before = fm.match_window.launches
+        out = fuse(*args, **kwargs)
+        fuse_deltas.append(fm.match_window.launches - before)
+        return out
+
+    dispatch, read = slam._dispatch_pipelined, slam._staging.read
+
+    def checked_dispatch(*args, **kwargs):
+        if slam._chain is None:
+            return dispatch(*args, **kwargs)
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = dispatch(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        checked.append(1)
+        return out
+
+    def kept_read(f):
+        got = read(f)
+        reads.append((got, f.device))
+        return got
+
+    slam._dispatch_pipelined, slam._staging.read = checked_dispatch, kept_read
+    for fn in counters:
+        fn.launches = 0
+    call_ms, syncs, in_flight = [], [], []
+    trk.track_frame, trk.fuse_map_points = counted_track, counted_fuse
+    try:
+        torch.cuda.synchronize()
+        for k in range(n_frames):
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                t0 = time.perf_counter()
+                try:
+                    T = step(k)
+                finally:
+                    call_ms.append((time.perf_counter() - t0) * 1e3)
+                    torch.cuda.set_sync_debug_mode(0)
+            syncs.append(sum("synchroniz" in str(x.message) for x in w))
+            in_flight.append(slam._pend is not None)
+            require(T.shape == (4, 4) and np.isfinite(T).all(),
+                    f"{label} frame {k}: non-finite pose")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        traj = slam.get_trajectory()
+        flush_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        trk.track_frame, trk.fuse_map_points = track_frame, fuse
+        slam._dispatch_pipelined, slam._staging.read = dispatch, read
+    launches = dict(zip(COUNTED, (fn.launches for fn in counters)))
+    mismatched = [i for i, (got, dev_s) in enumerate(reads)
+                  if not np.array_equal(got.view(np.uint32),
+                                        dev_s.cpu().numpy().view(np.uint32))]
+    n_piped = sum(in_flight)
+    rep = slam.tracer.report()
+    out = dict(frames=n_frames, pipelined_frames=n_piped,
+               first_pipelined=in_flight.index(True) if n_piped else None,
+               dispatches_checked=len(checked), summary_reads=len(reads),
+               track_frame_calls=len(track_calls),
+               fuse_launches=fuse_deltas, launches=launches,
+               frame_ms_tail=tail_stats(call_ms),
+               call_ms_pipelined_median=statistics.median(
+                   [t for t, p in zip(call_ms, in_flight) if p] or [0.0]),
+               flush_ms=flush_ms,
+               host_syncs_per_frame=sum(syncs) / n_frames,
+               summary_waits_per_frame=len(reads) / n_frames,
+               host_syncs_max=max(syncs),
+               stage_p50_ms={k: rep[k]["p50_ms"] for k in (
+                   "frame_step", "summary_fetch", "mapping_fused",
+                   "mapping_dispatch", "insert_kf") if k in rep},
+               stage_n={k: v["n"] for k, v in rep.items()})
+    print(f"{label}: {n_piped} of {n_frames} frames in flight after their "
+          f"call (first {out['first_pipelined']}), {len(checked)} dispatch "
+          f"halves under sync debug mode \"error\", {len(reads)} pinned "
+          f"summary reads; per call (second half) "
+          f"{_ms(out['frame_ms_tail'])}; flush {flush_ms:.3f} ms; host "
+          f"syncs a frame {out['host_syncs_per_frame']:.3f} (max "
+          f"{out['host_syncs_max']}) and summary waits a frame "
+          f"{out['summary_waits_per_frame']:.3f}; stage medians "
+          f"{out['stage_p50_ms']}; launches {launches}, track_frame calls "
+          f"{len(track_calls)}, fuse launches {fuse_deltas}")
+    require(len(traj) == n_frames, f"{label}: {len(traj)} records")
+    # a frame whose chain was dropped rebuilds it with blocking uploads
+    # and is not checked; most pipelined frames have the chain up
+    require(checked and len(checked) >= n_piped // 2,
+            f"{label}: {len(checked)} dispatch halves checked of {n_piped}")
+    require(not mismatched, f"{label}: pinned summary reads {mismatched} "
+            f"differ from their blocking reads")
+    require(launches["frontend_packed"] == n_frames,
+            f"{label}: frontend kernel launched "
+            f"{launches['frontend_packed']} times for {n_frames} frames")
+    require(fuse_deltas and all(d == 1 for d in fuse_deltas),
+            f"{label}: SearchAndFuse match launches {fuse_deltas}")
+    require(launches["fused_match"] == 3 * len(track_calls) + len(fuse_deltas),
+            f"{label}: match kernel launched {launches['fused_match']} times "
+            f"for {len(track_calls)} tracked frames and {len(fuse_deltas)} "
+            f"SearchAndFuse")
+    require(launches["pose_opt_fused"] == 2 * len(track_calls),
+            f"{label}: pose kernel launched {launches['pose_opt_fused']} "
+            f"times for {len(track_calls)} tracked frames")
+    return out
+
+
+def plain_loop(slam, step, n_frames: int) -> dict:
+    """The per-call ms of `step(k)` over every frame, with a host clock
+    around each call and no synchronize and no instrumentation, then one
+    synchronize and the flush: phase 13's timing run, for the pipelined
+    System and for its synchronous counterpart alike."""
+    import torch
+
+    ms = []
+    torch.cuda.synchronize()
+    for k in range(n_frames):
+        t0 = time.perf_counter()
+        step(k)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    slam.get_trajectory()
+    return tail_stats(ms)
+
+
+def _ms(r: dict) -> str:
+    return (f"p50 {r['p50']:.3f} / p95 {r['p95']:.3f} / max {r['max']:.3f} "
+            f"ms, {r['over_33ms']} of {r['n']} over 33 ms")
+
+
+def run_pipelined(dev, record, system, euroc_vi) -> dict:
+    """Phase 13: `System(pipelined=True)` on phase 4's clip (13a, phase
+    4's bars) and IMU_MONOCULAR on phase 10's (13b, `vi_failures` and the
+    pipelined-frame count against the JAX System's), each through
+    `pipe_loop`. Host times drift between the phases of one process, so
+    the synchronous System runs the same clip beside it (`plain_loop`:
+    13a synchronous, pipelined, pipelined unchecked, synchronous; 13b
+    synchronous, pipelined); phases 4 and 10's numbers of this run are
+    printed too. Every bar raises PhaseError."""
+    from orb_slam3_ros2_tpu_torch.tools import system_run as sr
+
+    imgs, R_gt, t_gt, ts = sr.render()
+
+    def mono_run(pipelined):
+        slam = sr.make_system(dev, pipelined=pipelined)
+        return slam, lambda k: slam.track_monocular(imgs[k], float(ts[k]))
+
+    beside = dict(sync_before=plain_loop(*mono_run(False), sr.N_FRAMES))
+    slam, step = mono_run(True)
+    mono = pipe_loop(slam, step, sr.N_FRAMES, "pipelined mono")
+    mono.update(ate_m=sr.ate(slam, slam.get_frame_trajectory(), R_gt, t_gt),
+                ate_raw_m=sr.ate(slam, slam.get_trajectory(), R_gt, t_gt),
+                n_kf=int(slam.map.n_kf), n_lm=int(slam.map.lm_valid.sum()),
+                n_tracked=len(sr.tracked_frames(slam)),
+                state=slam.get_tracking_state().name)
+    beside["pipelined_unchecked"] = plain_loop(*mono_run(True), sr.N_FRAMES)
+    beside["sync_after"] = plain_loop(*mono_run(False), sr.N_FRAMES)
+    mono["beside"] = beside
+    print(f"pipelined mono: ATE {mono['ate_m']:.4f} m (raw "
+          f"{mono['ate_raw_m']:.4f} m; phase 4 {system['ate_m']:.4f} / "
+          f"{system['ate_raw_m']:.4f}), {mono['n_kf']} keyframes (phase 4 "
+          f"{system['n_kf']}), {mono['n_lm']} landmarks, {mono['n_tracked']}"
+          f" tracked")
+    print(f"pipelined mono, per call over the second half: checked run "
+          f"{_ms(mono['frame_ms_tail'])}; unchecked "
+          f"{_ms(beside['pipelined_unchecked'])}; the synchronous System "
+          f"before {_ms(beside['sync_before'])}, after "
+          f"{_ms(beside['sync_after'])}; phase 4 (a synchronize around each "
+          f"call) {_ms(system['frame_ms_tail'])}")
+    require(mono["state"] == "OK", f"pipelined mono: state {mono['state']}")
+    require(mono["n_tracked"] > MIN_TRACKED,
+            f"pipelined mono: only {mono['n_tracked']} tracked frames")
+    require(mono["n_kf"] >= MIN_KF, f"pipelined mono: {mono['n_kf']} kf")
+    require(mono["n_lm"] > MIN_LM, f"pipelined mono: {mono['n_lm']} lm")
+    require(mono["ate_m"] < ATE_MAX_M, f"pipelined mono: ATE {mono['ate_m']}")
+    require(mono["ate_raw_m"] < ATE_RAW_MAX_M,
+            f"pipelined mono: raw ATE {mono['ate_raw_m']}")
+    add_launches(record, mono["launches"])
+
+    images, R_gt, t_gt, ts, imu = sr.render_euroc_vi()
+
+    def vi_run(pipelined):
+        slam = sr.make_vi_system(dev, pipelined=pipelined)
+
+        def step(k):
+            t_prev = float(ts[k - 1]) if k else -1.0
+            return slam.track_monocular(
+                images[k], float(ts[k]), sr.imu_points(imu, t_prev,
+                                                       float(ts[k])))
+
+        return slam, step
+
+    vi_sync = plain_loop(*vi_run(False), len(images))
+    slam, step = vi_run(True)
+    vi = pipe_loop(slam, step, len(images), "pipelined euroc_vi")
+    vi.update(state=slam.get_tracking_state().name,
+              dropped_imu_samples=slam.dropped_imu_samples,
+              sync_beside=vi_sync,
+              **sr.vi_metrics(slam, R_gt, t_gt, sr.VI_TRUE_BG))
+    vi["failed_bars"] = sr.vi_failures(vi)
+    vi["pipelined_frames_jax_cpu"] = VI_PIPELINED_JAX_CPU
+    print(f"pipelined euroc_vi: {vi['pipelined_frames']} pipelined frames "
+          f"(JAX on a CPU {VI_PIPELINED_JAX_CPU}), {vi['n_kf']} keyframes, "
+          f"{vi['n_tracked']} tracked, bg error {vi['bg_err']:.3g}, after "
+          f"the init {vi['n_post_init']} frames, Umeyama scale "
+          f"{vi.get('umeyama_scale')}, length ratio {vi.get('length_ratio')}"
+          f", ATE {vi.get('ate_m')} m (phase 10 {euroc_vi.get('ate_m')}); "
+          f"dropped IMU samples {vi['dropped_imu_samples']}")
+    print(f"pipelined euroc_vi, per call over the second half: "
+          f"{_ms(vi['frame_ms_tail'])}; the synchronous System before it "
+          f"{_ms(vi_sync)}; phase 10 (a synchronize around each call) "
+          f"{_ms(euroc_vi['frame_ms_tail'])}")
+    require(not vi["failed_bars"], f"pipelined euroc_vi: {vi['failed_bars']}")
+    require(vi["pipelined_frames"] >= 0.9 * VI_PIPELINED_JAX_CPU,
+            f"pipelined euroc_vi: {vi['pipelined_frames']} pipelined frames "
+            f"against the JAX System's {VI_PIPELINED_JAX_CPU}")
+    add_launches(record, vi["launches"])
+    print(f"pipelined: card {card_line()}")
+    return dict(mono=mono, euroc_vi=vi)
+
+
 def main() -> int:
     try:
         import torch
@@ -2503,6 +2795,7 @@ def main() -> int:
     vi_rigs = run_vi_rigs(dev, record)
     replays = run_replay(dev, record, system, clips["tum1_rgbd"])
     mesh = run_mesh(dev, record, system.pop("map_cloud"), loopy["corridor"])
+    pipelined = run_pipelined(dev, record, system, euroc_vi)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "wrapper_ms")
@@ -2521,7 +2814,8 @@ def main() -> int:
                       "fisheye_stereo": rigs["tumvi_stereo"],
                       "euroc_reloc": reloc, "synth_loopy": loopy,
                       "euroc_vi": euroc_vi, "vi_rigs": vi_rigs,
-                      "replay": replays, "mesh": mesh}))
+                      "replay": replays, "mesh": mesh,
+                      "pipelined": pipelined}))
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -105,9 +105,11 @@ def track_frame(m: ms.MapState, feat_uv, feat_bits, feat_mask, feat_level,
                 R_pred, t_pred, fx, fy, cx, cy, width, height,
                 scale_factor: float = 1.2, min_matches: int = 20,
                 min_stage1: int = 10, cap_visible: Optional[int] = None):
-    """The whole per-frame tracking step after extraction: match at 15 px,
-    retry at 30 px if fewer than `min_matches`, pose LM, re-match at 7 px
-    from the optimized pose, second pose LM, keep the better stage.
+    """The whole per-frame tracking step after extraction: match at 15 px
+    and at 30 px, keep the 30 px match if the 15 px one has fewer than
+    `min_matches` (the JAX `lax.cond`, selected on the device, so the step
+    makes no host sync), pose LM, re-match at 7 px from the optimized pose,
+    second pose LM, keep the better stage.
 
     Returns (tm, res, obs_clean, summary) with summary = [R(9), t(3),
     n_matches, n_inliers, n_kf, median inlier depth] as one (16,) tensor."""
@@ -117,10 +119,9 @@ def track_frame(m: ms.MapState, feat_uv, feat_bits, feat_mask, feat_level,
                             cap_visible=cap_visible)
 
     tm = matcher(R_pred, t_pred, 15.0)
-    # The JAX version's lax.cond becomes a Python branch: one host sync per
-    # frame on the match count.
-    if int(tm.n_matches) < min_matches:
-        tm = matcher(R_pred, t_pred, 30.0)
+    wide = matcher(R_pred, t_pred, 30.0)
+    retry = tm.n_matches < min_matches
+    tm = TrackMatch(*(torch.where(retry, b, a) for a, b in zip(tm, wide)))
     res, obs_clean = track_pose(m, tm.obs_lm, feat_uv, feat_level, R_pred,
                                 t_pred, fx, fy, cx, cy,
                                 scale_factor=scale_factor)

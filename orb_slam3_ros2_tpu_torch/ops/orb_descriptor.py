@@ -50,6 +50,13 @@ def _orientation_weights() -> np.ndarray:
                     axis=-1).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _on_device(make, device: torch.device) -> torch.Tensor:
+    """The constant array `make()` on `device`, uploaded once: an upload on
+    every frame would make the host wait for the copy. Read-only."""
+    return torch.from_numpy(make()).to(device)
+
+
 def gather_patches(img: torch.Tensor, yx: torch.Tensor) -> torch.Tensor:
     """(N, PATCH, PATCH) patches centered at integer coords yx (N, 2).
 
@@ -74,7 +81,7 @@ def gather_patches_multi(imgs, yx: torch.Tensor):
 
 def orientations(patches: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid angle per patch: (N, P, P) -> (N,) radians."""
-    wts = torch.from_numpy(_orientation_weights()).to(patches.device)
+    wts = _on_device(_orientation_weights, patches.device)
     m = patches.reshape(patches.shape[0], -1) @ wts
     return torch.atan2(m[:, 0], m[:, 1])
 
@@ -141,7 +148,7 @@ def _bilinear_sample(flat: torch.Tensor, y: torch.Tensor, x: torch.Tensor):
 
 def _describe_exact(patches: torch.Tensor, angles: torch.Tensor):
     """Exact-angle steered BRIEF samples: (N, 256, 2) values."""
-    pat = torch.from_numpy(brief_pattern()).to(patches.device)
+    pat = _on_device(brief_pattern, patches.device)
     cos = torch.cos(angles)
     sin = torch.sin(angles)
     # rotate by +angle in image coords (y down): y' = s·x + c·y, x' = c·x − s·y

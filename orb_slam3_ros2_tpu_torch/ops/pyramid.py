@@ -99,16 +99,22 @@ def _resize_weights(in_size: int, out_size: int) -> np.ndarray:
     return np.ascontiguousarray(w.T)
 
 
+@functools.lru_cache(maxsize=None)
+def _resize_weights_on(in_size: int, out_size: int,
+                       device: torch.device) -> torch.Tensor:
+    """`_resize_weights` on `device`, uploaded once: an upload on every
+    frame would make the host wait for the copy. Read-only."""
+    return torch.from_numpy(_resize_weights(in_size, out_size)).to(device)
+
+
 def resize(img: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
     """Antialiased bilinear resize of an (H, W) image, as jax.image.resize."""
     h, w = img.shape
     out = img
     if shape[0] != h:
-        Wy = torch.from_numpy(_resize_weights(h, shape[0])).to(img.device)
-        out = Wy @ out
+        out = _resize_weights_on(h, shape[0], img.device) @ out
     if shape[1] != w:
-        Wx = torch.from_numpy(_resize_weights(w, shape[1])).to(img.device)
-        out = out @ Wx.T
+        out = out @ _resize_weights_on(w, shape[1], img.device).T
     return out
 
 

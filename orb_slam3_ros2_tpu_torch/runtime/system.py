@@ -1,14 +1,33 @@
 """The System: the reference's host API over the port's device functions.
 
-Port of `orb_slam3_ros2_tpu/runtime/system.py`, the synchronous visual
-subset. `System.track_monocular` initializes a map from two views;
-`System.track_stereo` (rectified scanline or general two-view rig) and
-`System.track_rgbd` initialize from one frame's metric depth. Each frame is
-then tracked against the map, and keyframes go through `mapping_step`
-(insert → triangulate against two partners → stereo landmarks, for the rig
-sensors → fuse → local BA → cull) with one device-to-host fetch per
-keyframe (the packed summary). Also here: `undistort` and `frame_step`, the
-per-frame program of the JAX `System._build_jitted` (:205-210, :422-450).
+Port of `orb_slam3_ros2_tpu/runtime/system.py`. `System.track_monocular`
+initializes a map from two views; `System.track_stereo` (rectified
+scanline or general two-view rig) and `System.track_rgbd` initialize from
+one frame's metric depth. Each frame is then tracked against the map, and
+keyframes go through `mapping_step` (insert → triangulate against two
+partners → stereo landmarks, for the rig sensors → fuse → local BA → cull)
+with one device-to-host fetch per keyframe (the packed summary). Also here: `undistort`, `frame_step` and
+`frame_step_vi`, the per-frame programs of the JAX `System._build_jitted`
+(:205-210, :422-452, :485-551).
+
+The pipelined mode (`System(pipelined=True)`, the JAX `_track_pipelined`,
+:1233-1471): while MONOCULAR tracks, or IMU_MONOCULAR once its IMU is
+initialized, each `track_monocular` call dispatches this frame's
+`frame_step` (constant velocity from the device pose chain) or
+`frame_step_vi` (the pose propagated on the device through the frame's IMU
+batch), starts its summary's copy to a pinned host buffer, and consumes
+the previous frame's summary (`runtime/staging.py`). Poses, records and
+the LOST decision lag one frame; a lost frame drops the frame in flight,
+and both are recorded at the last good pose. A MONOCULAR keyframe is
+dispatched at consume time and finalized at the next consume (its BoW row
+written then); IMU_MONOCULAR keyframes take the staged inertial insertion.
+A compaction, loop correction, merge or rescale drops the device chain.
+The readers (`get_trajectory`, `get_frame_trajectory`,
+`get_keyframe_trajectory`, `get_map_pcl`, `save_atlas`) and every frame of
+the staged path first drain the frame in flight (`_flush_pipeline`). The
+rig sensors keep the synchronous path, as in JAX. The dispatch half waits
+for nothing on the device: the widened retry of `track_frame` is selected
+there, and the frame's uploads go through pinned buffers.
 
 Place recognition and the Atlas: the System owns a `loop.vocab.Vocabulary`
 (the default codebook, or `vocab_path`: a DBoW2 `.txt`, a codebook or tree
@@ -38,18 +57,16 @@ global BA after a loop closure runs landmark-sharded over the mesh
 (`parallel/distributed_map.distributed_map_ba`); `n_mesh_solves` counts
 those solves. `kf_remap_listeners` are called as `cb(remap, old_n_kf)`
 after a keyframe compaction (`parallel/live_session.py` keeps per-keyframe
-records by slot). The pipelined mode raises `NotImplementedError` naming
-the ROADMAP item it waits on (`ROADMAP.md` §1 item 10).
+records by slot).
 
 `System.tracer` (`utils/tracing.StageTracer`) times the JAX System's stages
-under the same names, where the port has the stage: `extract`,
-`stereo_match`, `predict`, `track_frame`, `insert_kf`, `mapping_fused`,
-`local_ba` and `loop_closing`. The JAX stages `frame_step`,
-`mapping_dispatch` and `summary_fetch` (and the `insert_kf` of
-`_consume_pend`) belong to its pipelined mode, which the port does not
-have. A stage reads the host clock and adds no device synchronization:
-the stages that end in a summary fetch (`track_frame`, `mapping_fused`)
-wait for their device work, the others time its enqueueing.
+under the same names: `extract`, `stereo_match`, `predict`, `track_frame`,
+`insert_kf`, `mapping_fused`, `local_ba` and `loop_closing`, and the
+pipelined mode's `frame_step`, `summary_fetch`, `mapping_dispatch`,
+`mapping_fused` and the `insert_kf` of `_consume_pend`. A stage reads the
+host clock and adds no device synchronization: the stages that end in a
+summary read (`track_frame`, `mapping_fused`, `summary_fetch`) wait for
+their device work, the others time its enqueueing.
 """
 
 from __future__ import annotations
@@ -82,6 +99,7 @@ from orb_slam3_ros2_tpu_torch.loop import vocab as vocab_mod
 from orb_slam3_ros2_tpu_torch.models import cameras as cam_mod
 from orb_slam3_ros2_tpu_torch.ops import matcher
 from orb_slam3_ros2_tpu_torch.parallel import distributed_map
+from orb_slam3_ros2_tpu_torch.runtime import staging as staging_mod
 from orb_slam3_ros2_tpu_torch.utils import tracing
 
 MIN_TRACK_INLIERS = 15  # System.MIN_TRACK_INLIERS
@@ -105,11 +123,21 @@ def frame_step(m: ms.MapState, R_cur, t_cur, R_prev, t_prev,
     visible/found counters bumped, the features with undistorted uv, the
     inlier associations, the tracked pose and the (16,) summary of
     `trk.track_frame`."""
-    f = ex.make_extractor(ex_cfg)(img)
-    uv_u = undistort(cam, f.uv)
     # T_pred = (T_cur ∘ T_prev⁻¹) ∘ T_cur
     R_v, t_v = lie.se3_compose(R_cur, t_cur, *lie.se3_inverse(R_prev, t_prev))
     R_pred, t_pred = lie.se3_compose(R_v, t_v, R_cur, t_cur)
+    m2, f_u, obs_clean, res, summary = _track_image(m, img, R_pred, t_pred,
+                                                    cam, ex_cfg)
+    return m2, f_u, obs_clean, res.R, res.t, summary
+
+
+def _track_image(m: ms.MapState, img: torch.Tensor, R_pred, t_pred,
+                 cam: cam_mod.Camera, ex_cfg: ex.ExtractorConfig):
+    """Extract and undistort `img`, track it from the predicted pose, and
+    bump the map's visible/found counters. Returns (m2, f_u, obs_clean,
+    the pose LM's result, the (16,) summary)."""
+    f = ex.make_extractor(ex_cfg)(img)
+    uv_u = undistort(cam, f.uv)
     L = m.lm_valid.shape[0]
     cap_vis = MATCH_CAP_VISIBLE if L > MATCH_CAP_VISIBLE else None
     tm, res, obs_clean, summary = trk.track_frame(
@@ -119,8 +147,60 @@ def frame_step(m: ms.MapState, R_cur, t_cur, R_prev, t_prev,
         cap_visible=cap_vis)
     m2 = m._replace(lm_visible=m.lm_visible + tm.lm_visible_inc,
                     lm_found=m.lm_found + tm.lm_found_inc)
-    return (m2, dataclasses.replace(f, uv=uv_u), obs_clean, res.R, res.t,
-            summary)
+    return m2, dataclasses.replace(f, uv=uv_u), obs_clean, res, summary
+
+
+def frame_step_vi(m: ms.MapState, R_cur, t_cur, v_cur, img: torch.Tensor,
+                  gyro, acc, dts, mask, bg, ba, dt_frame, R_bc, t_bc,
+                  cam: cam_mod.Camera, ex_cfg: ex.ExtractorConfig):
+    """`frame_step` for IMU_MONOCULAR (the JAX `frame_step_vi`,
+    `runtime/system.py:485-551`): the pose prediction integrates this
+    frame's IMU batch (gyro, acc (P, 3), dts (P,), mask (P,); a masked
+    sample is a no-op) from the last tracked pose T_cw = (R_cur, t_cur) and
+    body velocity v_cur (world), with the biases bg, ba, through the
+    body-from-camera extrinsic (R_bc, t_bc).
+
+    Returns (m2, f_u, obs_clean, R, t, v_new, summary): as `frame_step`,
+    plus the body velocity from the difference of the body centres over
+    `dt_frame` (a 0-dim tensor), and the (19,) summary, `track_frame`'s
+    (16,) with v_new appended."""
+    # camera pose -> body pose
+    R_bw = R_bc @ R_cur
+    t_bw = R_bc @ t_cur + t_bc
+    R_wb = R_bw.T
+    p_wb = -R_wb @ t_bw
+    g = torch.nn.functional.pad(
+        torch.full((1,), -9.81, dtype=t_cur.dtype, device=t_cur.device),
+        (2, 0))
+    # the JAX scan's body, sample by sample; the terms that do not depend
+    # on the carry (dt, the bias-corrected samples, each sample's rotation
+    # increment) are taken for all samples at once, which saves ~3/4 of
+    # the loop's launches and leaves each sample's arithmetic as it was
+    dt_all = dts * mask.to(torch.float32)
+    a_all = acc - ba
+    dR_all = lie.so3_exp((gyro - bg) * dt_all[:, None])
+    R, p, v = R_wb, p_wb, v_cur
+    for i in range(gyro.shape[0]):
+        dt = dt_all[i]
+        a_w = R @ a_all[i] + g
+        p = p + v * dt + 0.5 * a_w * dt * dt
+        v = v + a_w * dt
+        R = R @ dR_all[i]
+    # body pose -> camera pose
+    R_bw2 = R.T
+    t_bw2 = -R_bw2 @ p
+    R_pred = R_bc.T @ R_bw2
+    t_pred = R_bc.T @ (t_bw2 - t_bc)
+    m2, f_u, obs_clean, res, summary = _track_image(m, img, R_pred, t_pred,
+                                                    cam, ex_cfg)
+    # the body velocity: the difference of the body centres over the frame
+    # interval (no propagation drift accumulates)
+    R_bw_new = R_bc @ res.R
+    t_bw_new = R_bc @ res.t + t_bc
+    c_new = -R_bw_new.T @ t_bw_new
+    v_new = (c_new - p_wb) / torch.clamp(dt_frame, min=1e-6)
+    return (m2, f_u, obs_clean, res.R, res.t, v_new,
+            torch.cat([summary, v_new]))
 
 
 def add_stereo_landmarks(m: ms.MapState, kf_id, R, t, bits, mask, X_cam,
@@ -294,15 +374,10 @@ class TrackingState(enum.IntEnum):
     LOST = 2
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to torch yet (ROADMAP.md §1 item {item})")
-
-
 class System:
-    """SLAM engine with the reference System's API: the synchronous
-    monocular, stereo and RGB-D System of the JAX package, with or without
-    an IMU."""
+    """SLAM engine with the reference System's API: the monocular, stereo
+    and RGB-D System of the JAX package, with or without an IMU, and its
+    pipelined mode."""
 
     MIN_INIT_MATCHES = 90
     MIN_TRACK_INLIERS = MIN_TRACK_INLIERS
@@ -343,8 +418,8 @@ class System:
         only when the caller passes device="cpu")."""
         del init_frame
         self.sensor = Sensor(sensor)
-        if pipelined:
-            _not_ported("the pipelined mode", "10")
+        # frames consumed one behind (`_track_pipelined`)
+        self.pipelined = bool(pipelined)
         # a shard mesh (`parallel/mesh.py`): the global BA then runs
         # landmark-sharded over it (`parallel/distributed_map.py`)
         self.mesh = mesh
@@ -406,6 +481,11 @@ class System:
         self._t_bc = self._tensor(T_bc[:3, 3])
         self._pre_cap = max(int(4.0 * self.settings.imu_frequency
                                 / max(self.settings.fps, 1.0)), 16)
+        # the pipelined mode's pinned uploads (the image and the per-frame
+        # inputs of `frame_step_vi`) and summary reads
+        self._staging = (staging_mod.PipeStaging(
+            self.device, cam.height * cam.width + 8 * self._pre_cap + 7)
+            if self.pipelined else None)
         # per-stage wall-clock tracer (host clock, no device sync)
         self.tracer = tracing.StageTracer()
         self.reset()
@@ -475,6 +555,17 @@ class System:
         # System drops without a word (`_finish_kf_preint`, :2250)
         self.dropped_imu_samples = 0
         self.n_mesh_solves = 0  # global BAs run over the shard mesh
+        # landmark or keyframe compactions so far (the pipelined consume
+        # drops the device chain when one happens)
+        self._compact_events = 0
+        # the pipelined mode (see _track_pipelined): the frame in flight,
+        # the dispatched keyframe insertion, the device pose chain, its
+        # time and the IMU samples since it
+        self._pend = None
+        self._pend_kf = None
+        self._chain = None
+        self._chain_time: Optional[float] = None
+        self._pipe_imu: List[ImuPoint] = []
         # callbacks invoked as cb(remap, old_n_kf) after keyframe compaction
         self.kf_remap_listeners: List = []
 
@@ -501,6 +592,7 @@ class System:
     def save_atlas(self, path: Optional[str] = None) -> Optional[str]:
         """`System.SaveAtlasToFile`: the Atlas as `.npz` at `path` (or the
         settings' `System.SaveAtlasToFile`); returns the path."""
+        self._flush_pipeline()
         path = path or self.settings.save_atlas_to_file
         if not path:
             return None
@@ -551,7 +643,9 @@ class System:
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
 
-    def _preprocess(self, im: np.ndarray) -> torch.Tensor:
+    def _host_image(self, im: np.ndarray) -> np.ndarray:
+        """The frame as the extractor takes it: gray, at the camera's size,
+        float32 (on the host)."""
         if im.ndim == 3:
             im = im.mean(axis=-1)
         H, W = self.cam.height, self.cam.width
@@ -560,7 +654,10 @@ class System:
 
             im = cv2.resize(np.asarray(im, np.float32), (W, H),
                             interpolation=cv2.INTER_AREA)
-        return self._tensor(im)
+        return np.asarray(im, np.float32)
+
+    def _preprocess(self, im: np.ndarray) -> torch.Tensor:
+        return self._tensor(self._host_image(im))
 
     def _extract_undistorted(self, img: torch.Tensor):
         f = self._extract(img)
@@ -596,6 +693,21 @@ class System:
         visual modes ignore them."""
         t0 = _time.perf_counter()
         self._buffer_imu(imu_measurements)
+        if (self.pipelined and self.state == TrackingState.OK
+                and (self.sensor == Sensor.MONOCULAR
+                     or (self.sensor == Sensor.IMU_MONOCULAR
+                         and self.imu_initialized
+                         and self.v_cur is not None))):
+            # one behind: dispatch this frame, consume the previous one
+            # (its records are appended then, one per frame); IMU_MONOCULAR
+            # joins once its IMU is initialized, and runs the staged path
+            # for its VI bootstrap before that
+            if self.sensor == Sensor.IMU_MONOCULAR:
+                self._pipe_imu.extend(imu_measurements)
+            self._track_pipelined(im, timestamp, t0)
+            self.n_frames += 1
+            return self.Tcw.copy()
+        self._flush_pipeline()
         img = self._preprocess(im)
         with self.tracer.stage("extract"):
             feats = self._extract_undistorted(img)
@@ -687,6 +799,7 @@ class System:
 
     def get_map_pcl(self) -> np.ndarray:
         """Map-point snapshot (`GetMapPCL`)."""
+        self._flush_pipeline()
         X = self.map.lm_X.cpu().numpy()
         return X[self.map.lm_valid.cpu().numpy()]
 
@@ -708,6 +821,7 @@ class System:
         return self.state
 
     def get_trajectory(self):
+        self._flush_pipeline()
         return list(self.trajectory)
 
     def _mark_frame_ref_dirty(self):
@@ -737,6 +851,7 @@ class System:
         track-time pose, composed with that keyframe's final pose (the
         reference's SaveTrajectoryTUM). Frames whose reference keyframe no
         longer exists keep their raw online pose."""
+        self._flush_pipeline()
         kf_final = {round(t, 9): T for t, T in self.get_keyframe_trajectory()}
         s_now = float(self.scale_applied)
         out = []
@@ -754,6 +869,7 @@ class System:
 
     def get_keyframe_trajectory(self):
         """(t, T_cw 4x4) per keyframe from the current map."""
+        self._flush_pipeline()
         n_kf = int(self.map.n_kf)
         kR = self.map.kf_R[:n_kf].cpu().numpy()
         kt = self.map.kf_t[:n_kf].cpu().numpy()
@@ -761,8 +877,9 @@ class System:
                  self._pose44(kR[k], kt[k])) for k in range(n_kf)]
 
     def shutdown(self):
-        """The reference's `Shutdown`. The System runs synchronously, so
-        there is no mapping thread to stop, as in the JAX System."""
+        """The reference's `Shutdown`. There is no mapping thread to stop,
+        as in the JAX System; the readers drain the pipelined mode's frame
+        in flight."""
 
     # ------------------------------------------------------- initialization
 
@@ -1064,6 +1181,238 @@ class System:
         self._last_kf_center = -self.Tcw[:3, :3].T @ self.Tcw[:3, 3]
         self._mark_frame_ref_dirty()
 
+    # ------------------------------------------------------ pipelined mode
+
+    def _pack_pipe_imu(self, t_img: float):
+        """This frame's fixed-shape IMU batch (gyro, acc (P, 3), dts (P,),
+        mask (P,), numpy) over (chain time, t_img] from the pipelined
+        buffer, P = `_pre_cap` (the JAX `_pack_pipe_imu`, :1233-1259).
+        Samples after t_img stay in the buffer; those in the window past
+        the P-th are dropped, as in JAX, and counted in
+        `dropped_imu_samples`."""
+        P = self._pre_cap
+        gyro = np.zeros((P, 3), np.float32)
+        acc = np.zeros((P, 3), np.float32)
+        dts = np.zeros((P,), np.float32)
+        mask = np.zeros((P,), bool)
+        t_prev = self._chain_time if self._chain_time is not None else t_img
+        keep = []
+        i = 0
+        for p in self._pipe_imu:
+            if p.t <= t_prev:
+                continue
+            if p.t > t_img + 1e-9:
+                keep.append(p)
+                continue
+            if i < P:
+                gyro[i] = p.gyro
+                acc[i] = p.acc
+                dts[i] = max(p.t - t_prev, 0.0)
+                t_prev = p.t
+                mask[i] = True
+                i += 1
+            else:
+                self.dropped_imu_samples += 1
+        self._pipe_imu = keep
+        return gyro, acc, dts, mask
+
+    def _track_pipelined(self, im: np.ndarray, timestamp: float, t0: float):
+        """Dispatch this frame's device program and consume the previous
+        frame's summary, whose copy to the host was started a frame ago
+        (the JAX `_track_pipelined`, :1261-1311)."""
+        pend = self._dispatch_pipelined(im, timestamp, t0)
+        if pend is not None:
+            self._consume_pend(pend)
+
+    def _dispatch_pipelined(self, im: np.ndarray, timestamp: float,
+                            t0: float):
+        """The dispatch half: upload the frame, run `frame_step` (MONOCULAR:
+        constant velocity from the device pose chain (R, t, R_prev, t_prev))
+        or `frame_step_vi` (the chain (R, t, v) and this frame's IMU
+        batch), start the summary's copy, and make this frame the one in
+        flight. Returns the previous one. Once the chain is up, nothing
+        here waits for the device."""
+        vi = self.sensor == Sensor.IMU_MONOCULAR
+        if self._chain is None:
+            R_cur = self._tensor(self.Tcw[:3, :3])
+            t_cur = self._tensor(self.Tcw[:3, 3])
+            if vi:
+                self._chain = (R_cur, t_cur, self._tensor(self.v_cur))
+                self._chain_time = (self.last_frame_time
+                                    if self.last_frame_time is not None
+                                    else timestamp)
+            else:
+                Tp = (np.linalg.inv(self.velocity) @ self.Tcw
+                      if self.velocity is not None else self.Tcw)
+                self._chain = (R_cur, t_cur, self._tensor(Tp[:3, :3]),
+                               self._tensor(Tp[:3, 3]))
+        img_np = self._host_image(im)
+        H, W = img_np.shape
+        cam = self.cam
+        if vi:
+            gyro, acc, dts, mask = self._pack_pipe_imu(timestamp)
+            dtf = max(timestamp - self._chain_time, 1e-3)
+            up = self._staging.upload(np.concatenate([
+                img_np.reshape(-1), gyro.reshape(-1), acc.reshape(-1), dts,
+                mask, self.bg, self.ba, [dtf]]).astype(np.float32))
+            P = self._pre_cap
+            x = up[H * W:]
+            with self.tracer.stage("frame_step"):
+                m2, feats, obs_clean, Rk, tk, v_new, summary = frame_step_vi(
+                    self.map, *self._chain, up[:H * W].view(H, W),
+                    x[:3 * P].view(P, 3), x[3 * P:6 * P].view(P, 3),
+                    x[6 * P:7 * P], x[7 * P:8 * P], x[8 * P:8 * P + 3],
+                    x[8 * P + 3:8 * P + 6], x[8 * P + 6], self._R_bc,
+                    self._t_bc, cam, self.ex_cfg)
+            self._chain = (Rk, tk, v_new)
+            self._chain_time = timestamp
+        else:
+            img = self._staging.upload(img_np.reshape(-1)).view(H, W)
+            with self.tracer.stage("frame_step"):
+                m2, feats, obs_clean, Rk, tk, summary = frame_step(
+                    self.map, *self._chain, img, cam, self.ex_cfg)
+            self._chain = (Rk, tk, self._chain[0], self._chain[1])
+        self.map = m2
+        pend, self._pend = self._pend, (self._staging.fetch(summary), feats,
+                                        obs_clean, timestamp, t0)
+        return pend
+
+    def _flush_pipeline(self):
+        """Consume the frame in flight and finalize a dispatched keyframe,
+        if any, and drop the device chain: every reader and every frame of
+        the staged path calls it first."""
+        pend, self._pend = self._pend, None
+        if pend is not None:
+            self._consume_pend(pend)
+        self._finalize_pend_kf()
+        self._chain = None
+        self._chain_time = None
+        self._pipe_imu = []
+
+    def _drop_in_flight(self):
+        """Drop the device chain and the frame in flight, recorded at the
+        current pose."""
+        self._chain = None
+        self._chain_time = None
+        drop, self._pend = self._pend, None
+        if drop is not None:
+            self._append_frame_record(drop[3], drop[4])
+
+    def _insert_keyframe_fused_dispatch(self, feats, obs_clean,
+                                        timestamp: float, n_inl: int):
+        """The MONOCULAR keyframe insertion of the pipelined mode, dispatch
+        half (the JAX `_insert_keyframe_fused_dispatch`, :1324-1351): one
+        `mapping_step` and the start of its summary's copy; the next
+        consume finalizes it (`_finalize_pend_kf`), so the device maps
+        while the host dispatches the next frame."""
+        cam = self.cam
+        with self.tracer.stage("mapping_dispatch"):
+            self.map, summary = mapping_step(
+                self.map, self._tensor(self.Tcw[:3, :3]),
+                self._tensor(self.Tcw[:3, 3]), timestamp, feats.uv,
+                feats.level, feats.bits, feats.mask,
+                obs_clean.to(torch.int32), cam.fx, cam.fy, cam.cx, cam.cy,
+                cam.width, cam.height, n_window=self.LOCAL_WINDOW,
+                n_fixed_ring=self.LOCAL_FIXED_RING)
+        self.kf_times.append(timestamp)
+        self.frames_since_kf = 0
+        self.last_kf_inliers = max(n_inl, 1)
+        self._pend_kf = (self._staging.fetch(summary, "keyframe"), timestamp,
+                         feats)
+
+    def _finalize_pend_kf(self) -> bool:
+        """Finalize a dispatched keyframe insertion (the JAX
+        `_finalize_pend_kf`, :1353-1389): read its summary, write the
+        keyframe's BoW row at its slot, then compaction and loop closing.
+        The consumed frames' poses stay the motion model's; the keyframe
+        pose refills only the frame-reference cache. Returns True if the
+        map was compacted, corrected or merged (the caller drops the
+        chain)."""
+        pk, self._pend_kf = self._pend_kf, None
+        if pk is None:
+            return False
+        fetch, timestamp, feats = pk
+        with self.tracer.stage("mapping_fused"):
+            s = self._staging.read(fetch)
+        n_kf_after, n_lm = int(s[12]), int(s[13])
+        new_id = n_kf_after - 1
+        self._add_bow_row(new_id, feats)
+        before = (self._compact_events, self.n_loops_closed,
+                  self.n_maps_merged)
+        kf_remap = self._maybe_compact(n_kf=n_kf_after, n_lm=n_lm)
+        if kf_remap is not None:
+            new_id = int(kf_remap[new_id])
+        if self.settings.loop_closing:
+            with self.tracer.stage("loop_closing"):
+                self._try_close_loop(new_id, feats)
+        events = (self._compact_events, self.n_loops_closed,
+                  self.n_maps_merged) != before
+        if events:
+            self._mark_frame_ref_dirty()
+        else:
+            T_kf = self._pose44(s[:9].reshape(3, 3), s[9:12])
+            self._frame_ref_cache = (timestamp, T_kf,
+                                     float(self.scale_applied))
+            self._last_kf_center = -T_kf[:3, :3].T @ T_kf[:3, 3]
+        return events
+
+    def _append_frame_record(self, ts: float, t0: float):
+        """A consumed frame's trajectory, frame-reference and tracking-log
+        records."""
+        self.trajectory.append((ts, self.Tcw.copy()))
+        self.frame_refs.append(self._current_frame_ref())
+        self.tracking_log.append({
+            "t": ts, "state": int(self.state),
+            "ms": (_time.perf_counter() - t0) * 1e3})
+
+    def _consume_pend(self, pend):
+        """Apply one frame's lagged result to the host state (the JAX
+        `_consume_pend`, :1399-1471): finalize the keyframe dispatched at
+        the previous consume, read the summary, decide LOST (one frame
+        late: the frame in flight chained off the failed pose and is
+        dropped, both recorded at the last good pose), take the pose, and
+        insert a keyframe when the cadence asks for one."""
+        fetch, feats, obs_clean, ts, t0 = pend
+        if self._finalize_pend_kf():
+            self._append_frame_record(ts, t0)
+            self._drop_in_flight()
+            return
+        with self.tracer.stage("summary_fetch"):
+            s = self._staging.read(fetch)
+        n_match, n_inl, n_kf = int(s[12]), int(s[13]), int(s[14])
+        self._scene_depth = float(s[15])
+        if n_match < self.MIN_TRACK_INLIERS or n_inl < self.MIN_TRACK_INLIERS:
+            self.state = TrackingState.LOST
+            self._append_frame_record(ts, t0)
+            self._drop_in_flight()
+            return
+        T_new = self._pose44(s[:9].reshape(3, 3), s[9:12])
+        if self.last_Tcw is not None:
+            self.velocity = T_new @ np.linalg.inv(self.last_Tcw)
+        self.last_Tcw = T_new
+        self.Tcw = T_new
+        self.frames_since_kf += 1
+        self.last_frame_feats = feats
+        self.last_frame_time = ts
+        if s.shape[0] >= 19:
+            # the device's body velocity keeps the host's IMU state warm
+            self.v_cur = s[16:19].astype(np.float64)
+        self._append_frame_record(ts, t0)
+        if not self._need_keyframe(n_inl, n_kf):
+            return
+        if self.sensor == Sensor.MONOCULAR:
+            self._insert_keyframe_fused_dispatch(feats, obs_clean, ts, n_inl)
+            return
+        with self.tracer.stage("insert_kf"):
+            before = (self._compact_events, self.scale_applied,
+                      self.n_loops_closed, self.n_maps_merged)
+            self._insert_keyframe_inertial(feats, obs_clean, ts, n_inl)
+            if (self._compact_events, self.scale_applied,
+                    self.n_loops_closed, self.n_maps_merged) != before:
+                # the map was remapped or moved: the frame in flight
+                # tracked against the old one
+                self._drop_in_flight()
+
     # ------------------------------------------------------- map maintenance
 
     def _maybe_compact(self, n_kf: int = -1, n_lm: int = -1):
@@ -1074,11 +1423,13 @@ class System:
             n_lm = int(self.map.n_lm)
         if n_lm > self.LM_COMPACT_FRAC * self.map_cfg.max_lm:
             self.map, _ = ms.compact_landmarks(self.map)
+            self._compact_events += 1
         if n_kf < 0:
             n_kf = int(self.map.n_kf)
         if n_kf >= self.map_cfg.max_kf - self.KF_CULL_HEADROOM:
             remap = self._cull_keyframes()
             if remap is not None:
+                self._compact_events += 1
                 self._mark_frame_ref_dirty()
             return remap
         return None

@@ -116,10 +116,11 @@ def write_settings(path: Path) -> str:
     return str(path)
 
 
-def make_system(device) -> sysm.System:
+def make_system(device, pipelined: bool = False) -> sysm.System:
     with tempfile.TemporaryDirectory() as tmp:
         return sysm.System(None, write_settings(Path(tmp) / "euroc.yaml"),
-                           sysm.Sensor.MONOCULAR, device=device)
+                           sysm.Sensor.MONOCULAR, pipelined=pipelined,
+                           device=device)
 
 
 # ------------------------------------------------- stereo and RGB-D rigs
@@ -792,10 +793,11 @@ def vi_failures(r: dict) -> list:
     return failed
 
 
-def make_vi_system(device) -> sysm.System:
+def make_vi_system(device, pipelined: bool = False) -> sysm.System:
     """`config/Monocular-Inertial/EuRoC.yaml` as published, IMU_MONOCULAR."""
     return sysm.System(None, str(REPO / EUROC_VI),
-                       sysm.Sensor.IMU_MONOCULAR, device=device)
+                       sysm.Sensor.IMU_MONOCULAR, pipelined=pipelined,
+                       device=device)
 
 
 def run_euroc_vi(device, frames=None):

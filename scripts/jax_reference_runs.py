@@ -3,7 +3,7 @@
 and 10, on the CPU: the reference figures beside the port's.
 
     python scripts/jax_reference_runs.py [--config euroc_reloc|synth_loopy|
-                                          euroc_vi ...]
+                                          euroc_vi|euroc_vi_pipelined ...]
 
 euroc_reloc: the 752x480 EuRoC clip rendered through the radtan distortion
 of `config/Monocular/EuRoC.yaml` (`system_run.render_euroc_distorted`), 40
@@ -20,7 +20,10 @@ loop or merged maps. euroc_vi (not in the default list): phase 10's clip
 (`system_run.render_euroc_vi`: 120 frames at 600x350 with a 200 Hz IMU)
 through the JAX `System.track_monocular` in IMU_MONOCULAR mode on
 `config/Monocular-Inertial/EuRoC.yaml` as published, with the measures of
-`system_run.vi_metrics`. vi_rigs (not in the default list): phase 10b's
+`system_run.vi_metrics`. euroc_vi_pipelined (not in the default list):
+the same with `System(pipelined=True)`, and the frames that took the
+pipelined path (a frame in flight after the call, as `bench.py` counts
+them). vi_rigs (not in the default list): phase 10b's
 IMU_STEREO and IMU_RGBD clips; with `--features PATH`, the stereo clip
 on the feature sets that the port extracted (`tools/vi_rig_diff.py
 --save-features`), in place of the JAX extraction.
@@ -200,23 +203,29 @@ def synth_loopy_events() -> dict:
     return dict(config="synth_loopy_events", **out)
 
 
-def euroc_vi() -> dict:
+def euroc_vi(pipelined: bool = False) -> dict:
     from orb_slam3_ros2_tpu.runtime.system import Sensor, System
     from orb_slam3_ros2_tpu_torch.tools import system_run as sr
 
     images, R_gt, t_gt, ts, imu = sr.render_euroc_vi()
-    slam = System(None, os.path.join(ROOT, sr.EUROC_VI), Sensor.IMU_MONOCULAR)
-    init_frame, t_prev = None, -1.0
+    slam = System(None, os.path.join(ROOT, sr.EUROC_VI), Sensor.IMU_MONOCULAR,
+                  pipelined=pipelined)
+    init_frame, t_prev, n_piped = None, -1.0, 0
     t0 = time.perf_counter()
     for k in range(len(images)):
         slam.track_monocular(images[k], float(ts[k]),
                              sr.imu_points(imu, t_prev, float(ts[k])))
         if init_frame is None and slam.is_imu_initialized():
             init_frame = k
+        # a frame in flight after the call: it took the pipelined path
+        n_piped += slam._pend is not None
         t_prev = float(ts[k])
-    r = dict(config="euroc_vi", state=slam.get_tracking_state().name,
+    r = dict(config="euroc_vi_pipelined" if pipelined else "euroc_vi",
+             state=slam.get_tracking_state().name,
              vi_init_frame=init_frame, wall_s=time.perf_counter() - t0,
              **sr.vi_metrics(slam, R_gt, t_gt, sr.VI_TRUE_BG))
+    if pipelined:
+        r["pipelined_frames"] = n_piped
     r["failed_bars"] = sr.vi_failures(r)
     return r
 
@@ -276,13 +285,15 @@ def main(argv=None):
     ap.add_argument("--config", nargs="+",
                     default=["euroc_reloc", "synth_loopy"],
                     choices=["euroc_reloc", "synth_loopy",
-                             "synth_loopy_events", "euroc_vi", "vi_rigs"])
+                             "synth_loopy_events", "euroc_vi",
+                             "euroc_vi_pipelined", "vi_rigs"])
     ap.add_argument("--features", help="vi_rigs: run the stereo clip on "
                     "the feature sets of this file (`tools/vi_rig_diff.py "
                     "--save-features`) instead of extracting")
     args = ap.parse_args(argv)
     runs = dict(euroc_reloc=euroc_reloc, synth_loopy=synth_loopy,
                 synth_loopy_events=synth_loopy_events, euroc_vi=euroc_vi,
+                euroc_vi_pipelined=lambda: euroc_vi(pipelined=True),
                 vi_rigs=lambda: vi_rigs(args.features))
     for name in args.config:
         print(json.dumps(runs[name]()), flush=True)

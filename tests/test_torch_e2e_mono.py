@@ -57,11 +57,10 @@ def _centers(sys_, traj, R_gt, t_gt):
     return np.array(est), np.array(gt)
 
 
-@pytest.fixture
-def jax_draws(monkeypatch):
-    """Feed each initialization attempt the JAX System's samples for its
-    frame; records the (seed, device) of the System's generators."""
-    seen = []
+def jax_initialize(seen: list):
+    """A stand-in for `initializer.initialize` that draws each attempt's
+    samples as the JAX System does for its frame, appending the (seed,
+    device) of the System's generator to `seen`."""
 
     def initialize(gen, uv1, uv2, mask, *args, **kwargs):
         seen.append((gen.initial_seed(), gen.device))
@@ -73,7 +72,15 @@ def jax_draws(monkeypatch):
             uv1, uv2, mask, torch.from_numpy(idx_h), torch.from_numpy(idx_f),
             *args, **kwargs)
 
-    monkeypatch.setattr(tinit, "initialize", initialize)
+    return initialize
+
+
+@pytest.fixture
+def jax_draws(monkeypatch):
+    """Feed each initialization attempt the JAX System's samples for its
+    frame; records the (seed, device) of the System's generators."""
+    seen = []
+    monkeypatch.setattr(tinit, "initialize", jax_initialize(seen))
     return seen
 
 
@@ -108,12 +115,6 @@ def test_port_e2e_mono_tracks_and_ate(rendered, two_threads,
     assert ate_raw < 0.12, f"raw online ATE {ate_raw:.4f} m"
     assert len(sys_.kf_times) == n_kf
     assert all(isinstance(t, float) for t in sys_.kf_times)
-
-
-@pytest.mark.parametrize("kwargs,item", [(dict(pipelined=True), "10")])
-def test_left_out_parts_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        System(None, SETTINGS, device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("sensor", [Sensor.IMU_MONOCULAR, Sensor.IMU_STEREO,

@@ -1,6 +1,7 @@
 """The port's stage tracer against the JAX one (`orb_slam3_ros2_tpu/utils/
 tracing.py`, `tests/test_tracing.py`): the same reports from the same
-samples, the port System's stage names after a short CPU run, and the
+samples, the port System's stage names after a short CPU run (in the
+synchronous and the pipelined mode), and the
 torch.profiler capture that replaces `jax.profiler.trace`."""
 
 import json
@@ -19,9 +20,8 @@ from tests.test_torch_e2e_stereo import two_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SETTINGS = os.path.join(ROOT, "tests", "data", "synth_cam.yaml")
-# the JAX System's stages that belong to its pipelined mode, which the port
-# does not have (ROADMAP item 10)
-PIPELINED_ONLY = {"frame_step", "mapping_dispatch", "summary_fetch"}
+# the stages of the JAX System's pipelined mode
+PIPELINED = {"frame_step", "mapping_dispatch", "summary_fetch"}
 
 
 def test_tracer_aggregates():
@@ -64,28 +64,44 @@ def _jax_stage_names() -> set:
     return set(re.findall(r'tracer\.stage\("(\w+)"\)', src))
 
 
-def test_system_records_the_jax_stage_names(two_threads):  # noqa: F811
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_system_records_the_jax_stage_names(two_threads,  # noqa: F811
+                                            pipelined):
     """After 20 frames on the CPU (the port's own draws initialize the map
-    at frame 14 of this clip) the port System reports the JAX stage names
-    it has a counterpart for: every stage of the JAX System except the
-    pipelined mode's, under the same name, and no other name."""
+    at frame 14 of this clip) the port System reports JAX stage names
+    only: the synchronous System its stages, the pipelined one the
+    pipelined mode's (`frame_step` on each frame after the initialization,
+    `summary_fetch` on each it consumed, a `mapping_dispatch` and its
+    `mapping_fused` per keyframe); and the port's System names
+    every stage of the JAX System, under the same name, and no other."""
     images, _, _, ts = synthetic.render_sequence(
         n_frames=20, width=320, height=240, fx=260.0, fy=260.0,
         fps=10.0, seed=1, plane_depths=(6.0, 9.0), traj_scale=1.6)
-    slam = System(None, SETTINGS, Sensor.MONOCULAR, device="cpu")
+    slam = System(None, SETTINGS, Sensor.MONOCULAR, pipelined=pipelined,
+                  device="cpu")
     for k in range(images.shape[0]):
         slam.track_monocular(images[k], float(ts[k]))
+    slam.get_trajectory()
     rep = slam.tracer.report()
-    assert rep["extract"]["n"] == 20
-    assert rep["track_frame"]["n"] >= 1
-    assert rep["predict"]["n"] == rep["track_frame"]["n"]
-    assert rep["insert_kf"]["n"] == rep["mapping_fused"]["n"] >= 1
+    if pipelined:
+        assert set(rep) & PIPELINED == PIPELINED
+        assert rep["extract"]["n"] + rep["frame_step"]["n"] == 20
+        assert rep["summary_fetch"]["n"] == rep["frame_step"]["n"] >= 1
+        # each dispatched insertion was finalized (the flush included)
+        assert rep["mapping_dispatch"]["n"] == rep["mapping_fused"]["n"]
+        assert "track_frame" not in rep and "insert_kf" not in rep
+    else:
+        assert not set(rep) & PIPELINED
+        assert rep["extract"]["n"] == 20
+        assert rep["track_frame"]["n"] >= 1
+        assert rep["predict"]["n"] == rep["track_frame"]["n"]
+        assert rep["insert_kf"]["n"] == rep["mapping_fused"]["n"] >= 1
     jax_names = _jax_stage_names()
     assert set(rep) <= jax_names, set(rep) - jax_names
     src = open(os.path.join(ROOT, "orb_slam3_ros2_tpu_torch", "runtime",
                             "system.py")).read()
     port_names = set(re.findall(r'tracer\.stage\("(\w+)"\)', src))
-    assert port_names == jax_names - PIPELINED_ONLY
+    assert port_names == jax_names
 
 
 def test_capture_writes_a_chrome_trace(tmp_path):
