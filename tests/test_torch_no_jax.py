@@ -1,8 +1,9 @@
 """The port runs where JAX is absent: in a fresh interpreter whose `jax`
 import fails, every module of `orb_slam3_ros2_tpu_torch` imports (the
 stereo module by name too), `frame_step` tracks a small image on the CPU,
-`System.track_monocular` takes two frames (the second one runs the matcher
-and the initializer), `System.track_stereo` takes one rendered pair
+so does one step of the benchmark's tracking loop (`tools/bench.py`),
+`System.track_monocular` takes two frames (the second one runs the
+matcher and the initializer), `System.track_stereo` takes one rendered pair
 (stereo matching and the one-frame initialization), and so does an
 IMU_STEREO System with an IMU sample, beside a preintegration and a VI
 initialization (the forward-mode Jacobians), and a `SlamSession` takes two
@@ -58,6 +59,12 @@ m2, f_u, obs, R1, t1, s = system.frame_step(m, R, t, R, t, img, cam, cfg)
 assert s.shape == (16,) and torch.isfinite(s).all()
 assert int(s[13]) >= 15, s
 assert float((t1 - t).abs().max()) < 1e-3
+# one step of the benchmark's tracking loop (tools/bench.py) on that map
+from orb_slam3_ros2_tpu_torch.tools import bench
+Rb, tb, nb = bench.track_step(ex.make_extractor(cfg), m, img, R, t,
+                              (F, F, W / 2, H / 2, W, H))
+assert Rb.shape == (3, 3) and int(nb) >= 15, int(nb)
+assert float((tb - t).abs().max()) < 1e-3
 
 import os, tempfile
 from orb_slam3_ros2_tpu_torch.backend import ba, schur
