@@ -5,8 +5,9 @@ monocular, stereo, RGB-D and fisheye-stereo configurations, relocalization
 and the Atlas on the stock EuRoC settings, loop closing, and the inertial
 sensors on the published EuRoC mono-inertial settings, the sharded
 solvers, map-to-map ICP, the multi-process sessions, the pipelined
-mode, the benchmark (`tools/bench.py`) and the evaluation suite
-(`tools/eval_ate.py`).
+mode, the benchmark (`tools/bench.py`), the evaluation suite
+(`tools/eval_ate.py`) and the remaining entry points (`tools/graft_entry.py`,
+the BA and place-recognition benches, vocabulary training, localization).
 
     python3 chip_smoke.py
 
@@ -244,10 +245,36 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    `synth_loopy`. The `synth_loopy` row is phase 9's two runs (the same
    clip and settings), not run again. The rows of `EVAL_ATE_CEILING_M`
    are held to that ATE ceiling in place of their bar's (PERF.md §6).
+16. Entry points: the port's remaining tools on the card, each called as
+   a user calls it (`main(argv)`, or `entry()` / `dryrun_multichip`), its
+   kernel launches counted from 0 around it; outputs under build/chip/.
+   16a `tools/graft_entry.py`: one step of `entry()` launches each
+   main-path kernel once, with > 100 inliers, R and t within 1e-3 of the
+   identity, and equals the step through the plain versions (R within
+   5e-5, t within 5e-4, the same inliers); its ms a step; then
+   `dryrun_multichip(8)`, 8 shards on the one card, every check of it
+   (the 2-D block BA's cut fraction under 0.6x the contiguous one). 16b
+   `tools/bench_block_ba.py` at its defaults: the global row within 2% of
+   BLOCKBA.json's cost and 1e-3 m of its pose RMSE, the record's shape
+   (one block sweep above the global cost, the fourth below the first),
+   each row beside the record's. 16c `tools/bench_scaling.py` at 64 x
+   32,768, 20 iterations, 1 / 2 / 4 / 8 shards on the card (one rep): the
+   final cost equal within 1e-3 relative across shard counts; ms an
+   iteration each. 16d `tools/bench_place_recognition.py` at its defaults:
+   563 queries over 1,800 entries, each codebook's recall@1 and group
+   recall@1 within 0.03 of PR_RECALL.json's. 16e `tools/bench_pr_mapscale.py`
+   at the published width with 3,000 entries: 563 queries, recall@1 >=
+   0.96; its median query ms. 16f `tools/train_vocab.py --synthetic`: the
+   codebook loads in `System(vocab_path=...)` on the card and in
+   `loop/vocab.load_vocabulary`. 16g `tools/localize_map.py`: phase 11a's
+   session directory against a copy of its cloud moved by 5 degrees and
+   0.2 m, the motion recovered within phase 12c's bars. The host-only tools
+   (`visualize`, `make_configs`, `calibrate_camera`) are held on the CPU
+   only.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON record (`launches`: the sum over the runs of phases 3-10b,
-13, 14 and 15, each counted from 0 around its run, of phase 11's four
+13, 14, 15 and 16, each counted from 0 around its run, of phase 11's four
 replays and of phase 12b; the per-level kernels: phase 2b; `ms`:
 device time per launch at the main-path shape, `wrapper_ms` the wrapper's
 time there), the line before that the card, and the one before that the
@@ -2891,6 +2918,271 @@ def run_eval(record, loopy) -> dict:
                 launches=launches, took_s=took)
 
 
+# ----------------------------------------------------------- phase 16
+
+ENTRY_DIR = ROOT / "build" / "chip"
+# 16a: tests/test_graft_entry.py's checks, and the step held to the plain
+# versions within phase 8's tolerances
+ENTRY_MIN_INLIERS, ENTRY_POSE_ATOL = 100, 1e-3
+ENTRY_PLAIN_R_ATOL, ENTRY_PLAIN_T_ATOL = 5e-5, 5e-4
+ENTRY_TIMED_STEPS = 20
+DRYRUN_SHARDS = 8
+# 16b: the bars against BLOCKBA.json's global row (the JAX package's record)
+BLOCKBA_COST_REL, BLOCKBA_RMSE_M = 0.02, 1e-3
+# 16c: the iterations a run, and final_cost across shard counts, relative
+SCALING_ITERS, SCALING_COST_REL = 20, 1e-3
+# 16d: each codebook row against PR_RECALL.json's; the query count and the
+# database size follow from the geometry alone
+PR_QUERIES, PR_DB_ENTRIES, PR_RECALL_ATOL = 563, 1800, 0.03
+# 16e: the published width with fewer distractor banks (PR_RECALL_10K.json
+# reads 0.993 at 10,200 entries)
+MAPSCALE_ENTRIES, MAPSCALE_MIN_RECALL = 3000, 0.96
+ENTRY_PHASE_BUDGET_S = 300.0
+
+
+def counted_run(fn):
+    """(fn(), the main-path kernels' launches in it): every counter set to
+    0 just before and read just after a synchronize."""
+    import torch
+
+    for c in _counters():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(zip(COUNTED, (c.launches for c in _counters())))
+
+
+def entry_graft(dev, record) -> dict:
+    """16a: `graft_entry.entry()` on the card: one step launches each
+    main-path kernel once and agrees with the same step through the plain
+    versions; then `dryrun_multichip(8)`, 8 shards on the one card."""
+    import torch
+    from orb_slam3_ros2_tpu_torch.tools import graft_entry
+
+    step, args = graft_entry.entry(dev)
+    (R, t, n), launches = counted_run(lambda: step(*args))
+    add_launches(record, launches)
+    R, t, n = R.cpu().numpy(), t.cpu().numpy(), int(n)
+    with plain_versions():
+        Rp, tp, n_p = (a.cpu() for a in step(*args))
+    dR, dt = float(np.abs(R - Rp.numpy()).max()), float(
+        np.abs(t - tp.numpy()).max())
+    for _ in range(3):
+        step(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ENTRY_TIMED_STEPS):
+        step(*args)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / ENTRY_TIMED_STEPS
+    out = dict(inliers=n, inliers_plain=int(n_p), dR_plain=dR, dt_plain=dt,
+               R_err=float(np.abs(R - np.eye(3)).max()),
+               t_err=float(np.abs(t).max()), step_ms=step_ms,
+               launches=launches)
+    print(f"graft_entry.entry: {n} inliers (plain {int(n_p)}), |R - I| "
+          f"{out['R_err']:.2e}, |t| {out['t_err']:.2e}; vs plain dR "
+          f"{dR:.2e} dt {dt:.2e}; step {step_ms:.3f} ms (mean of "
+          f"{ENTRY_TIMED_STEPS}); launches {launches}")
+    require(n > ENTRY_MIN_INLIERS and out["R_err"] <= ENTRY_POSE_ATOL
+            and out["t_err"] <= ENTRY_POSE_ATOL, f"entry: {out}")
+    require(dR <= ENTRY_PLAIN_R_ATOL and dt <= ENTRY_PLAIN_T_ATOL
+            and n == int(n_p), f"entry vs the plain versions: {out}")
+    require(launches == dict.fromkeys(COUNTED, 1),
+            f"entry: one step launched {launches}")
+    t0 = time.perf_counter()
+    try:
+        (dry, dry_launches) = counted_run(
+            lambda: graft_entry.dryrun_multichip(DRYRUN_SHARDS))
+    except AssertionError as e:
+        raise PhaseError(f"dryrun_multichip({DRYRUN_SHARDS}): {e!r}")
+    out["dryrun"] = dict(dry, launches=dry_launches,
+                         wall_s=time.perf_counter() - t0)
+    add_launches(record, dry_launches)
+    return out
+
+
+def entry_block_ba(record) -> dict:
+    """16b: `bench_block_ba` at its defaults, held to BLOCKBA.json."""
+    from orb_slam3_ros2_tpu_torch.tools import bench_block_ba
+
+    ref = json.loads((ROOT / "BLOCKBA.json").read_text())["results"]
+    blob, launches = counted_run(lambda: bench_block_ba.main(
+        ["--out", str(ENTRY_DIR / "BLOCKBA_TORCH.json")]))
+    add_launches(record, launches)
+    res = blob["results"]
+    for key, row in res.items():
+        if key == "analysis":
+            continue
+        print(f"block BA {key}: pose rmse {row['pose_rmse_m']} m, cost "
+              f"{row['full_cost']}, wall {row.get('wall_s')} s, "
+              f"{row.get('ms_per_iter', float('nan')):.3f} ms/iter | "
+              f"BLOCKBA.json {ref[key]['pose_rmse_m']} m, "
+              f"{ref[key]['full_cost']}")
+    g, r = res["global"], ref["global"]
+    require(abs(g["full_cost"] - r["full_cost"])
+            <= BLOCKBA_COST_REL * r["full_cost"]
+            and abs(g["pose_rmse_m"] - r["pose_rmse_m"]) <= BLOCKBA_RMSE_M,
+            f"block BA global {g} vs BLOCKBA.json {r}")
+    require(res["block_fixed_boundary"]["full_cost"] > g["full_cost"]
+            and res["block_round_4"]["full_cost"]
+            < res["block_fixed_boundary"]["full_cost"],
+            f"block BA: the record's shape does not hold: {res}")
+    return dict(results=res, launches=launches)
+
+
+def entry_scaling(record) -> dict:
+    """16c: `bench_scaling` at 64 x 32,768, 20 iterations, 1 / 2 / 4 / 8
+    shards on the one card (in series), one rep."""
+    from orb_slam3_ros2_tpu_torch.tools import bench_scaling
+
+    lines, launches = counted_run(lambda: bench_scaling.main(
+        ["--reps", "1", "--iters", str(SCALING_ITERS)]))
+    add_launches(record, launches)
+    rows = lines[:-1]
+    for r in rows:
+        print(f"scaling: {r['devices']} shards, "
+              f"{r['best_s'] * 1e3 / SCALING_ITERS:.3f} ms/iter, cost "
+              f"{r['final_cost']}")
+    require([r["devices"] for r in rows] == [1, 2, 4, 8],
+            f"scaling: shard counts {rows}")
+    c1 = rows[0]["final_cost"]
+    require(all(abs(r["final_cost"] - c1) <= SCALING_COST_REL * c1
+                for r in rows), f"scaling: costs differ: {rows}")
+    return dict(lines=lines, launches=launches)
+
+
+def entry_place_recognition(record) -> dict:
+    """16d: `bench_place_recognition` at its defaults, each row held to
+    PR_RECALL.json's."""
+    from orb_slam3_ros2_tpu_torch.tools import bench_place_recognition
+
+    ref = json.loads((ROOT / "PR_RECALL.json").read_text())["results"]
+    blob, launches = counted_run(lambda: bench_place_recognition.main(
+        ["--vocab-out", str(ENTRY_DIR / "vocab")]))
+    add_launches(record, launches)
+    for row, r in zip(blob["results"], ref):
+        print(f"place recognition {row['codebook']}: recall@1 "
+              f"{row['recall@1']} (PR_RECALL.json {r['recall@1']}), group "
+              f"{row['group_recall@1']} ({r['group_recall@1']}), queries "
+              f"{row['queries']}")
+        require(row["codebook"] == r["codebook"]
+                and row["queries"] == PR_QUERIES
+                and row["db_entries"] == PR_DB_ENTRIES,
+                f"place recognition: {row}")
+        require(abs(row["recall@1"] - r["recall@1"]) <= PR_RECALL_ATOL
+                and abs(row["group_recall@1"] - r["group_recall@1"])
+                <= PR_RECALL_ATOL,
+                f"place recognition {row} vs PR_RECALL.json {r}")
+    return dict(results=blob["results"], launches=launches)
+
+
+def entry_mapscale(record) -> dict:
+    """16e: `bench_pr_mapscale` at the published width with 3,000
+    entries."""
+    from orb_slam3_ros2_tpu_torch.tools import bench_pr_mapscale
+
+    rep, launches = counted_run(lambda: bench_pr_mapscale.main(
+        ["--target-entries", str(MAPSCALE_ENTRIES)]))
+    add_launches(record, launches)
+    print(f"map-scale recognition: {rep['db_entries']} entries, recall@1 "
+          f"{rep['recall@1']}, query {rep['query_ms_median']} ms median; "
+          f"card {card_line()}")
+    require(rep["queries"] == PR_QUERIES
+            and rep["recall@1"] >= MAPSCALE_MIN_RECALL,
+            f"map-scale recognition: {rep}")
+    return dict(report=rep, launches=launches)
+
+
+def entry_train_vocab(dev, record) -> dict:
+    """16f: `train_vocab --synthetic` (flat) at its defaults; the file
+    loads in `System(vocab_path=...)` on the card and in
+    `loop/vocab.load_vocabulary`."""
+    from orb_slam3_ros2_tpu_torch.loop import vocab as vocab_mod
+    from orb_slam3_ros2_tpu_torch.runtime import system as sysm
+    from orb_slam3_ros2_tpu_torch.tools import train_vocab
+
+    out = ENTRY_DIR / "vocab" / "train_synthetic.npz"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    path, launches = counted_run(lambda: train_vocab.main(
+        ["--synthetic", "--out", str(out)]))
+    add_launches(record, launches)
+    anchors = vocab_mod.load_vocabulary(path)
+    slam = sysm.System(path, str(ROOT / "tests" / "data" / "synth_cam.yaml"),
+                       sysm.Sensor.MONOCULAR, device=dev)
+    loaded = slam.vocab.anchors.cpu().numpy()
+    print(f"train_vocab: {path}, {anchors.shape} codebook; the System's "
+          f"vocabulary on {slam.vocab.device}")
+    require(anchors.shape == (vocab_mod.N_WORDS, vocab_mod.N_BITS)
+            and np.array_equal(loaded, anchors),
+            f"train_vocab: {anchors.shape}, the System's {loaded.shape}")
+    return dict(path=path, launches=launches)
+
+
+def entry_localize(dev, session) -> dict:
+    """16g: `localize_map` with phase 11a's session directory as the
+    source and a copy of its cloud moved by 5 degrees and 0.2 m as the
+    target: T_dst_src is that motion within tests/test_icp_align.py's
+    bars."""
+    import torch
+    from orb_slam3_ros2_tpu_torch.geom import lie
+    from orb_slam3_ros2_tpu_torch.runtime import outputs
+    from orb_slam3_ros2_tpu_torch.tools import localize_map
+
+    axis = np.array([0.3, -0.5, 0.8])
+    axis /= np.linalg.norm(axis)
+    R_gt = lie.so3_exp(torch.as_tensor(
+        axis * np.deg2rad(ICP_ROT_DEG))).numpy().astype(np.float64)
+    t_dir = np.array([0.6, -0.4, 0.7])
+    t_gt = ICP_T_M * t_dir / np.linalg.norm(t_dir)
+    src = localize_map.load_cloud(str(session))
+    moved = ENTRY_DIR / "moved.pcd"
+    outputs.save_pcd(str(moved), src @ R_gt.T + t_gt)
+    t0 = time.perf_counter()
+    blob = localize_map.main(["--src", str(session), "--dst", str(moved)])
+    ms = (time.perf_counter() - t0) * 1e3
+    T = np.asarray(blob["T_dst_src"])
+    dR = T[:3, :3] @ R_gt.T
+    rot_err = float(np.arccos(np.clip((np.trace(dR) - 1) / 2, -1.0, 1.0)))
+    t_err = float(np.linalg.norm(T[:3, 3] - t_gt))
+    print(f"localize_map: {blob['src_points']} points, rotation error "
+          f"{rot_err:.2e} rad, translation error {t_err:.2e} m, rms "
+          f"{blob['rms']}, inliers {blob['inlier_frac']}; {ms:.1f} ms")
+    require(rot_err < ICP_ROT_ERR_RAD and t_err < ICP_T_ERR_M
+            and blob["rms"] < ICP_RMS and blob["inlier_frac"] > ICP_INLIER,
+            f"localize_map: {blob}")
+    return dict(blob, rot_err_rad=rot_err, t_err_m=t_err, ms=ms)
+
+
+def run_entry_points(dev, record, session) -> dict:
+    """Phase 16: the port's remaining entry points through `main(argv)` (or
+    `entry()` / `dryrun_multichip`) on the card, each held to its bar and
+    its main-path kernel launches counted from 0 around it. `session` is
+    phase 11a's session directory."""
+    ENTRY_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    out, took = {}, {}
+    steps = (("graft_entry", lambda: entry_graft(dev, record)),
+             ("block_ba", lambda: entry_block_ba(record)),
+             ("scaling", lambda: entry_scaling(record)),
+             ("place_recognition", lambda: entry_place_recognition(record)),
+             ("mapscale", lambda: entry_mapscale(record)),
+             ("train_vocab", lambda: entry_train_vocab(dev, record)),
+             ("localize_map", lambda: entry_localize(dev, session)))
+    for name, run in steps:
+        t1 = time.perf_counter()
+        out[name] = run()
+        took[name] = time.perf_counter() - t1
+        print(f"entry points: {name} took {took[name]:.1f} s")
+    out["took_s"] = took
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"entry points: phase 16 took {out['phase_s']:.1f} s "
+          f"(budget {ENTRY_PHASE_BUDGET_S:.0f} s); card {card_line()}")
+    require(out["phase_s"] <= ENTRY_PHASE_BUDGET_S,
+            f"entry points: phase 16 took {out['phase_s']:.1f} s, over its "
+            f"{ENTRY_PHASE_BUDGET_S:.0f} s budget")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2908,6 +3200,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from orb_slam3_ros2_tpu_torch.ops import cuda_lib
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}")
@@ -2990,6 +3283,8 @@ def main() -> int:
     pipelined = run_pipelined(dev, record, system, euroc_vi)
     bench_out = run_bench(record)
     evaluation = run_eval(record, loopy)
+    entry_points = run_entry_points(dev, record,
+                                    REPLAY_DIR / "out" / "replay_dir")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "wrapper_ms")
@@ -3010,7 +3305,8 @@ def main() -> int:
                       "euroc_vi": euroc_vi, "vi_rigs": vi_rigs,
                       "replay": replays, "mesh": mesh,
                       "pipelined": pipelined, "bench": bench_out,
-                      "eval": evaluation}))
+                      "eval": evaluation, "entry_points": entry_points}))
+    print(f"chip_smoke: all phases took {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -59,6 +59,7 @@ from orb_slam3_ros2_tpu_torch.backend import ba as ba_mod
 from orb_slam3_ros2_tpu_torch.frontend import extractor as ex
 from orb_slam3_ros2_tpu_torch.frontend import tracking as trk
 from orb_slam3_ros2_tpu_torch.io import synthetic
+from orb_slam3_ros2_tpu_torch.tools.cli import add_device, device_of, sync
 from orb_slam3_ros2_tpu_torch.tools.roofline import card
 
 PARTS = ("tracking", "ba", "system", "system_vi")
@@ -71,11 +72,6 @@ B_SMALL, B_LARGE = 32, 256  # slope endpoints
 REPEATS = 3
 BA_ITERS = (10, 30)
 LIVE_BUDGET_MS = 33.0  # a frame of the 30 frames/s live camera
-
-
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 # ------------------------------------------------------------ tracking
@@ -151,14 +147,14 @@ def _bench_tracking(device, height: int = HEIGHT, width: int = WIDTH,
     for nb in batches:
         fr = noise_frames(rng, nb, height, width, device)
         track_batch(extract, m, fr, R0, t0, cam)  # warm-up
-        _sync(device)
+        sync(device)
         fr = noise_frames(rng, nb, height, width, device)
         frames += nb * (1 + repeats)
         runs = []
         for _ in range(repeats):
             t_start = time.perf_counter()
             track_batch(extract, m, fr, R0, t0, cam)
-            _sync(device)
+            sync(device)
             runs.append(time.perf_counter() - t_start)
             fr = fr + 0.001  # a new buffer each run, as bench.py
         times[nb] = runs
@@ -208,12 +204,12 @@ def _bench_ba_iters(device, K: int = 64, L: int = 8192, iters=BA_ITERS,
     times = {}
     for n_iters in iters:
         ba_mod.bundle_adjust(problem, *BA_CAMERA, n_iters=n_iters)  # warm
-        _sync(device)
+        sync(device)
         runs = []
         for _ in range(repeats):
             t0 = time.perf_counter()
             ba_mod.bundle_adjust(problem, *BA_CAMERA, n_iters=n_iters)
-            _sync(device)
+            sync(device)
             runs.append(time.perf_counter() - t0)
         times[n_iters] = runs
     lo, hi = iters
@@ -360,8 +356,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=PARTS, default=None,
                     help="run one part; the others' numbers are null")
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (the default; stops without a card) or cpu")
+    add_device(ap)
     return ap
 
 
@@ -369,11 +364,7 @@ def main(argv=None) -> dict:
     """Runs the parts, prints the JSON line and returns it as a dict."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    if (torch.device(args.device).type == "cuda"
-            and not torch.cuda.is_available()):
-        ap.error("no CUDA device is available; pass --device cpu to run on "
-                 "the CPU")
-    dev = torch.device(args.device)
+    dev = device_of(ap, args)
 
     def runs(part):
         return args.only in (None, part)

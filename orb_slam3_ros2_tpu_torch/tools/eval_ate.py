@@ -35,6 +35,7 @@ import time
 
 import torch
 
+from orb_slam3_ros2_tpu_torch.tools.cli import add_device, device_of
 from orb_slam3_ros2_tpu_torch.tools.roofline import card
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -289,8 +290,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--out",
                     default=os.path.join(REPO, "eval_results_torch.json"))
     ap.add_argument("--out-md", default=os.path.join(REPO, "EVAL_TORCH.md"))
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (the default; stops without a card) or cpu")
+    add_device(ap)
     return ap
 
 
@@ -302,10 +302,7 @@ def main(argv=None, *, given=None):
     given = given or {}
     ap = build_parser()
     args = ap.parse_args(argv)
-    if (torch.device(args.device).type == "cuda"
-            and not torch.cuda.is_available()):
-        ap.error("no CUDA device is available; pass --device cpu to run on "
-                 "the CPU")
+    device_of(ap, args)
     results = []
     real = discover_real(args.data)
     if real:

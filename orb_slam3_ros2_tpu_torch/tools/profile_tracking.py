@@ -58,6 +58,7 @@ from orb_slam3_ros2_tpu_torch.ops import frontend_packed as fp
 from orb_slam3_ros2_tpu_torch.ops import fused_match
 from orb_slam3_ros2_tpu_torch.ops import pyramid as pyr_ops
 from orb_slam3_ros2_tpu_torch.tools import bench, roofline
+from orb_slam3_ros2_tpu_torch.tools.cli import add_device, device_of, sync
 
 B_SMALL, B_LARGE = 32, 512
 N_REPS = 5
@@ -271,13 +272,13 @@ def slope_time(fn, rng, height, width, device, batches=(B_SMALL, B_LARGE),
     for nb in batches:
         fr = bench.noise_frames(rng, nb, height, width, device)
         fn(fr)
-        bench._sync(device)
+        sync(device)
         fr = bench.noise_frames(rng, nb, height, width, device)
         best = float("inf")
         for _ in range(reps):
             t0 = time.perf_counter()
             fn(fr)
-            bench._sync(device)
+            sync(device)
             best = min(best, time.perf_counter() - t0)
             fr = fr + 0.001
         times[nb] = best
@@ -333,16 +334,16 @@ def _ba_roofline(device, K: int = 64, L: int = 8192, iters=bench.BA_ITERS,
     times, work = {}, {}
     for n_iters in iters:
         ba_mod.bundle_adjust(problem, *bench.BA_CAMERA, n_iters=n_iters)
-        bench._sync(device)
+        sync(device)
         work[n_iters] = count_work(lambda: ba_mod.bundle_adjust(
             problem, *bench.BA_CAMERA, n_iters=n_iters))
         best = float("inf")
         for i in range(reps):
             p2 = problem._replace(t=problem.t + 1e-6 * (i + 1))
-            bench._sync(device)
+            sync(device)
             t0 = time.perf_counter()
             ba_mod.bundle_adjust(p2, *bench.BA_CAMERA, n_iters=n_iters)
-            bench._sync(device)
+            sync(device)
             best = min(best, time.perf_counter() - t0)
         times[n_iters] = best
     lo, hi = iters
@@ -406,10 +407,10 @@ def profile(device, height: int = bench.HEIGHT, width: int = bench.WIDTH,
 
         fr = bench.noise_frames(rng, TRACE_FRAMES, height, width, device)
         stages["full"](fr)
-        bench._sync(device)
+        sync(device)
         with tracing.capture(trace):
             stages["full"](fr)
-            bench._sync(device)
+            sync(device)
         print(f"trace written to {trace}/trace.json", file=sys.stderr)
 
     return dict(
@@ -426,13 +427,9 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trace", default=None, metavar="LOGDIR")
     ap.add_argument("--out", default=None, metavar="JSON")
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (the default; stops without a card) or cpu")
+    add_device(ap)
     args = ap.parse_args(argv)
-    if (torch.device(args.device).type == "cuda"
-            and not torch.cuda.is_available()):
-        ap.error("no CUDA device is available; pass --device cpu to run on "
-                 "the CPU")
+    device_of(ap, args)
     out = profile(torch.device(args.device), trace=args.trace)
     if args.out:
         with open(args.out, "w") as f:

@@ -50,6 +50,7 @@ import torch
 from orb_slam3_ros2_tpu_torch.io import synthetic
 from orb_slam3_ros2_tpu_torch.runtime.session import SlamSession
 from orb_slam3_ros2_tpu_torch.runtime.system import ImuPoint, Sensor, System
+from orb_slam3_ros2_tpu_torch.tools.cli import add_device, device_of
 from orb_slam3_ros2_tpu_torch.utils import tracing
 
 MODES = {
@@ -106,8 +107,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write a torch.profiler trace of the replay to "
                          "LOGDIR/trace.json and its per-stage launch and "
                          "device counts to LOGDIR/stages.json")
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (the default) or cpu")
+    add_device(ap)
     return ap
 
 
@@ -128,10 +128,7 @@ def _timed(items: Iterable, tracer, name: str) -> Iterator:
 def main(argv=None) -> Tuple[dict, SlamSession]:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if (torch.device(args.device).type == "cuda"
-            and not torch.cuda.is_available()):
-        ap.error("no CUDA device is available; pass --device cpu to run on "
-                 "the CPU")
+    device_of(ap, args)
     if args.mode == "rgbd" and (args.synthetic or args.camera
                                 or args.video or args.record
                                 or args.playback_bag):
