@@ -11,6 +11,11 @@ The JAX `lax.scan` over iterations is a Python loop; its `lax.cond` on the
 iteration index (every `reclassify_every` iterations) is a Python branch on
 that static index, and the LM accept is a `torch.where`, so the loop makes
 no host sync.
+
+While a profiler runs, each iteration is a `ba.iteration` span holding
+`ba.refresh_weights` (on the gated iterations), `ba.reduce`,
+`ba.solve_cameras`, `ba.back_substitute` and `ba.cost`, and the final cost
+is one more `ba.cost` (`utils/tracing.span`).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from orb_slam3_ros2_tpu_torch.backend import residuals as res
 from orb_slam3_ros2_tpu_torch.backend import schur
 from orb_slam3_ros2_tpu_torch.geom import lie
+from orb_slam3_ros2_tpu_torch.utils import tracing
 
 HUBER = math.sqrt(res.CHI2_MONO)
 FIXED_PRIOR = 1e12  # diagonal prior that pins gauge-fixed poses
@@ -50,12 +56,17 @@ class BAResult(NamedTuple):
 
 def _step(R, t, X, uv, w_active, fixed, point_valid, fx, fy, cx, cy, lam):
     """One damped Gauss-Newton step: (R_new, t_new, X_new, cost0)."""
-    terms = schur.schur_reduce(R, t, X, uv, w_active, fx, fy, cx, cy, lam)
-    dxc = schur.solve_cameras(terms.Hcc_p, terms.S_off, terms.rhs_p, fixed,
-                              lam, FIXED_PRIOR)
-    dxl = schur.back_substitute(terms, dxc, point_valid)
-    R_new, t_new = lie.se3_retract(R, t, dxc)
-    return lie.se3_normalize(R_new), t_new, X + dxl, terms.cost0
+    with tracing.span("ba.reduce"):
+        terms = schur.schur_reduce(R, t, X, uv, w_active, fx, fy, cx, cy,
+                                   lam)
+    with tracing.span("ba.solve_cameras"):
+        dxc = schur.solve_cameras(terms.Hcc_p, terms.S_off, terms.rhs_p,
+                                  fixed, lam, FIXED_PRIOR)
+    with tracing.span("ba.back_substitute"):
+        dxl = schur.back_substitute(terms, dxc, point_valid)
+        R_new, t_new = lie.se3_retract(R, t, dxc)
+        R_new, X_new = lie.se3_normalize(R_new), X + dxl
+    return R_new, t_new, X_new, terms.cost0
 
 
 def ba_iteration(p: BAProblem, fx, fy, cx, cy, w_active, lam):
@@ -80,20 +91,27 @@ def bundle_adjust(
     first (optimize on all observations first, then gate)."""
     w_base = p.w
     R, t, X, w_active = p.R, p.t, p.X, w_base
-    lam = torch.tensor(1e-4, dtype=torch.float32, device=X.device)
+    # a fill on the device: `torch.tensor(1e-4, device=...)` copies from
+    # pageable host memory and waits for the stream
+    lam = torch.full((), 1e-4, dtype=torch.float32, device=X.device)
     for it in range(n_iters):
-        if it > 0 and it % reclassify_every == 0:
-            w_active = schur.refresh_weights(R, t, X, p.uv, w_base, fx, fy,
-                                             cx, cy, chi2_th)
-        R_new, t_new, X_new, cost0 = _step(R, t, X, p.uv, w_active, p.fixed,
-                                           p.point_valid, fx, fy, cx, cy,
-                                           lam)
-        cost1 = schur.robust_cost(R_new, t_new, X_new, p.uv, w_active, fx,
-                                  fy, cx, cy)
-        better = cost1 < cost0
-        R = torch.where(better, R_new, R)
-        t = torch.where(better, t_new, t)
-        X = torch.where(better, X_new, X)
-        lam = torch.where(better, lam * 0.3, lam * 5.0).clamp(1e-9, 1e3)
-    cost = schur.robust_cost(R, t, X, p.uv, w_active, fx, fy, cx, cy)
+        with tracing.span("ba.iteration"):
+            if it > 0 and it % reclassify_every == 0:
+                with tracing.span("ba.refresh_weights"):
+                    w_active = schur.refresh_weights(R, t, X, p.uv, w_base,
+                                                     fx, fy, cx, cy, chi2_th)
+            R_new, t_new, X_new, cost0 = _step(R, t, X, p.uv, w_active,
+                                               p.fixed, p.point_valid, fx,
+                                               fy, cx, cy, lam)
+            with tracing.span("ba.cost"):
+                cost1 = schur.robust_cost(R_new, t_new, X_new, p.uv,
+                                          w_active, fx, fy, cx, cy)
+                better = cost1 < cost0
+                R = torch.where(better, R_new, R)
+                t = torch.where(better, t_new, t)
+                X = torch.where(better, X_new, X)
+                lam = torch.where(better, lam * 0.3, lam * 5.0).clamp(1e-9,
+                                                                      1e3)
+    with tracing.span("ba.cost"):
+        cost = schur.robust_cost(R, t, X, p.uv, w_active, fx, fy, cx, cy)
     return BAResult(R=R, t=t, X=X, cost=cost, inlier_w=w_active)

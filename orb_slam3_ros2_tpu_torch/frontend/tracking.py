@@ -20,6 +20,7 @@ from orb_slam3_ros2_tpu_torch.backend import pose_opt_fused
 from orb_slam3_ros2_tpu_torch.geom import lie
 from orb_slam3_ros2_tpu_torch.ops import fused_match, matcher
 from orb_slam3_ros2_tpu_torch.ops import orb_descriptor as desc_ops
+from orb_slam3_ros2_tpu_torch.utils import tracing
 
 
 class TrackMatch(NamedTuple):
@@ -359,28 +360,34 @@ def local_ba(m: ms.MapState, window_ids: torch.Tensor,
     """Windowed BA over the dense observation table; writes results back.
 
     Duplicate window ids (short-map padding) are deactivated past their
-    first occurrence, so the pose write-back has one writer per keyframe."""
-    W = window_ids.shape[0]
-    dev = window_ids.device
-    same = window_ids[None, :] == window_ids[:, None]
-    earlier = torch.ones((W, W), dtype=torch.bool, device=dev).tril(-1)
-    first_occurrence = ~(same & earlier).any(dim=1)
-    uv_t, w_t, kf_ok = ms.observation_table(m, window_ids)
-    active = kf_ok & first_occurrence
-    ids = window_ids.long()
-    p = ba_mod.BAProblem(
-        R=m.kf_R[ids], t=m.kf_t[ids], X=m.lm_X, uv=uv_t,
-        w=w_t * active[:, None], fixed=fix_ids_mask | ~active,
-        point_valid=m.lm_valid)
-    out = ba_mod.bundle_adjust(p, fx, fy, cx, cy, n_iters=n_iters)
-    K = m.kf_R.shape[0]
-    write_ids = torch.where(active, ids, K)
-    kf_R = ms._scatter_drop(m.kf_R, write_ids, out.R)
-    kf_t = ms._scatter_drop(m.kf_t, write_ids, out.t)
-    # landmarks: only those observed by the window moved
-    moved = (w_t * active[:, None]).sum(0) > 0
-    lm_X = torch.where(moved[:, None], out.X, m.lm_X)
-    return m._replace(kf_R=kf_R, kf_t=kf_t, lm_X=lm_X)
+    first occurrence, so the pose write-back has one writer per keyframe.
+    While a profiler runs it is a `ba.local` span holding `ba.obs_table`,
+    the iterations' spans and `ba.write_back` (`utils/tracing.py`)."""
+    with tracing.span("ba.local"):
+        with tracing.span("ba.obs_table"):
+            W = window_ids.shape[0]
+            dev = window_ids.device
+            same = window_ids[None, :] == window_ids[:, None]
+            earlier = torch.ones((W, W), dtype=torch.bool,
+                                 device=dev).tril(-1)
+            first_occurrence = ~(same & earlier).any(dim=1)
+            uv_t, w_t, kf_ok = ms.observation_table(m, window_ids)
+            active = kf_ok & first_occurrence
+            ids = window_ids.long()
+            p = ba_mod.BAProblem(
+                R=m.kf_R[ids], t=m.kf_t[ids], X=m.lm_X, uv=uv_t,
+                w=w_t * active[:, None], fixed=fix_ids_mask | ~active,
+                point_valid=m.lm_valid)
+        out = ba_mod.bundle_adjust(p, fx, fy, cx, cy, n_iters=n_iters)
+        with tracing.span("ba.write_back"):
+            K = m.kf_R.shape[0]
+            write_ids = torch.where(active, ids, K)
+            kf_R = ms._scatter_drop(m.kf_R, write_ids, out.R)
+            kf_t = ms._scatter_drop(m.kf_t, write_ids, out.t)
+            # landmarks: only those observed by the window moved
+            moved = (w_t * active[:, None]).sum(0) > 0
+            lm_X = torch.where(moved[:, None], out.X, m.lm_X)
+            return m._replace(kf_R=kf_R, kf_t=kf_t, lm_X=lm_X)
 
 
 def fuse_map_points(
@@ -472,10 +479,11 @@ def global_ba(m: ms.MapState, n_kf: int, fx, fy, cx, cy,
     """Bundle adjustment over the n_kf live keyframes (the reference's
     GlobalBundleAdjustment after a loop correction; the JAX version runs
     every keyframe slot, which the pad makes the same solve), keyframe 0
-    fixed."""
-    ids, fix = global_ba_window(n_kf, m.kf_valid.shape[0],
-                                m.kf_valid.device)
-    return local_ba(m, ids, fix, fx, fy, cx, cy, n_iters=n_iters)
+    fixed. While a profiler runs it is a `ba.global` span."""
+    with tracing.span("ba.global"):
+        ids, fix = global_ba_window(n_kf, m.kf_valid.shape[0],
+                                    m.kf_valid.device)
+        return local_ba(m, ids, fix, fx, fy, cx, cy, n_iters=n_iters)
 
 
 def cull_landmarks(m: ms.MapState, min_found_ratio: float = 0.25,

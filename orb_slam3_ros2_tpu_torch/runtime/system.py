@@ -66,7 +66,13 @@ pipelined mode's `frame_step`, `summary_fetch`, `mapping_dispatch`,
 `mapping_fused` and the `insert_kf` of `_consume_pend`. A stage reads the
 host clock and adds no device synchronization: the stages that end in a
 summary read (`track_frame`, `mapping_fused`, `summary_fetch`) wait for
-their device work, the others time its enqueueing.
+their device work, the others time its enqueueing. Below the stages, while
+a profiler runs, the bundle adjustment opens its own spans through
+`tracing.span`, not through the tracer: `ba.global`, `ba.local`,
+`ba.obs_table`, `ba.iteration` (holding `ba.refresh_weights`, `ba.reduce`,
+`ba.solve_cameras`, `ba.back_substitute`, `ba.cost`) and `ba.write_back`;
+the insertion's local BA lands inside `local_ba` or `mapping_fused`, the
+global BA after a loop closure inside `loop_closing`.
 """
 
 from __future__ import annotations

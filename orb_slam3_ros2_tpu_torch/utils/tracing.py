@@ -20,6 +20,25 @@ CUDA activities) and writes a Chrome trace; it replaces the JAX
 `record_function` span of its name (one flag read when none runs), and
 `stage_summary(trace)` counts the kernel launches each span issued and
 the device time of those kernels.
+
+`span(name)` is that profiler half alone, for code that holds no tracer.
+The bundle adjustment opens these spans, nested as its calls nest:
+
+    ba.global            frontend/tracking.py global_ba
+      ba.local           frontend/tracking.py local_ba (also the
+                         insertion's local BA on the frame path)
+        ba.obs_table     the observation table and the problem's gather
+        ba.iteration     backend/ba.py bundle_adjust, one LM iteration
+          ba.refresh_weights   the chi2 re-gate, on the gated iterations
+          ba.reduce            schur.schur_reduce
+          ba.solve_cameras     schur.solve_cameras
+          ba.back_substitute   the landmark step and the pose update
+          ba.cost              the candidate's cost and the LM accept
+        ba.cost          the final cost
+        ba.write_back    the pose scatters and the landmark select
+
+They are read in a capture's Chrome trace (`stage_summary`) and by the
+benchmark's backend-BA metrics (`slambench/ba_spans.py`).
 """
 
 from __future__ import annotations
@@ -33,6 +52,18 @@ from collections import defaultdict
 from typing import Dict, List
 
 import torch
+
+
+@contextlib.contextmanager
+def span(name: str):
+    """A `torch.profiler.record_function` range named `name` while a
+    profiler runs; otherwise one flag read. It adds no device
+    synchronization, so the work inside runs the same either way."""
+    if torch.autograd._profiler_enabled():
+        with torch.profiler.record_function(name):
+            yield
+    else:
+        yield
 
 
 class StageTracer:
@@ -50,10 +81,7 @@ class StageTracer:
             return
         t0 = time.perf_counter()
         try:
-            if torch.autograd._profiler_enabled():
-                with torch.profiler.record_function(name):
-                    yield
-            else:
+            with span(name):
                 yield
         finally:
             self._samples[name].append(time.perf_counter() - t0)

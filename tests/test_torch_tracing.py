@@ -178,3 +178,105 @@ def test_stage_summary_counts_launches_and_their_kernels(tmp_path):
                           "device_ms": approx(0.004)}
     assert s["_trace"] == {"window_ms": approx(0.4), "launches": 4,
                            "device_busy_ms": approx(0.11)}
+
+
+def test_span_is_a_profiler_range_only_while_one_runs(tmp_path,
+                                                      monkeypatch):
+    """`tracing.span` opens no `record_function` while no profiler runs,
+    and one range of its name while one does."""
+    import torch
+
+    opened = []
+    orig = torch.profiler.record_function
+
+    def record(name):
+        opened.append(name)
+        return orig(name)
+
+    monkeypatch.setattr(torch.profiler, "record_function", record)
+    with tracing.span("ba.outside"):
+        torch.ones(8) + 1
+    assert opened == []
+    with tracing.capture(str(tmp_path / "prof")):
+        with tracing.span("ba.inside"):
+            torch.ones(8) + 1
+    assert opened == ["ba.inside"]
+    s = tracing.stage_summary(str(tmp_path / "prof" / "trace.json"))
+    assert s["ba.inside"]["n"] == 1 and "ba.outside" not in s
+
+
+def _ba_spans(trace_path):
+    """The `ba.*` host spans of a capture, (start, end, name), by start."""
+    with open(trace_path) as f:
+        ev = json.load(f)["traceEvents"]
+    return sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in ev
+                  if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                  and e["name"].startswith("ba."))
+
+
+def test_global_ba_spans_nest_as_the_solve(tmp_path):
+    """A CPU global BA of 11 iterations under a capture: one `ba.global`
+    around one `ba.local`, which holds `ba.obs_table`, the iterations, the
+    final `ba.cost` and `ba.write_back` in that order; each `ba.iteration`
+    holds one `ba.reduce`, `ba.solve_cameras`, `ba.back_substitute` and
+    `ba.cost`, and a `ba.refresh_weights` first on the iterations the χ²
+    gate refreshes (5 and 10, `reclassify_every` 5)."""
+    from orb_slam3_ros2_tpu_torch.frontend import tracking as trk
+    from tests.test_torch_ba_no_sync import CAM, tiny_map
+
+    n_iters = 11
+    m, n_kf = tiny_map("cpu")
+    with tracing.capture(str(tmp_path / "prof")):
+        trk.global_ba(m, n_kf, *CAM, n_iters=n_iters)
+    path = str(tmp_path / "prof" / "trace.json")
+    s = tracing.stage_summary(path)
+    assert {k: v["n"] for k, v in s.items() if k.startswith("ba.")} == {
+        "ba.global": 1, "ba.local": 1, "ba.obs_table": 1,
+        "ba.write_back": 1, "ba.iteration": n_iters, "ba.reduce": n_iters,
+        "ba.solve_cameras": n_iters, "ba.back_substitute": n_iters,
+        "ba.cost": n_iters + 1, "ba.refresh_weights": 2}
+    spans = _ba_spans(path)
+
+    def inside(outer):
+        a, b, _ = outer
+        return [x for x in spans if x != outer and a <= x[0] and x[1] <= b]
+
+    (glob,) = [x for x in spans if x[2] == "ba.global"]
+    (loc,) = [x for x in spans if x[2] == "ba.local"]
+    assert [x[2] for x in inside(glob)][0] == "ba.local"
+    assert len(inside(glob)) == len(spans) - 1
+    iters = [x for x in spans if x[2] == "ba.iteration"]
+    in_iters = {x for it in iters for x in inside(it)}
+    assert [x[2] for x in inside(loc) if x not in in_iters] == (
+        ["ba.obs_table"] + ["ba.iteration"] * n_iters
+        + ["ba.cost", "ba.write_back"])
+    stages = ["ba.reduce", "ba.solve_cameras", "ba.back_substitute",
+              "ba.cost"]
+    with open(path) as f:
+        ops = [(e["ts"], e["ts"] + e["dur"]) for e in
+               json.load(f)["traceEvents"] if e.get("cat") == "cpu_op"]
+    for i, it in enumerate(iters):
+        gated = ["ba.refresh_weights"] if i in (5, 10) else []
+        assert [x[2] for x in inside(it)] == gated + stages, i
+        # an iteration runs nothing outside its stages, so a device trace
+        # gives `ba.iteration` no device annotation of its own
+        for a, b in ops:
+            if it[0] <= a < it[1]:
+                assert any(x[0] <= a and b <= x[1] for x in inside(it))
+
+
+def test_spans_leave_the_solve_bitwise_unchanged(tmp_path):
+    """The global BA's poses and landmarks are the same bits with a
+    profiler running as without."""
+    import torch
+
+    from orb_slam3_ros2_tpu_torch.frontend import tracking as trk
+    from tests.test_torch_ba_no_sync import CAM, tiny_map
+
+    m, n_kf = tiny_map("cpu", seed=1)
+    plain = trk.global_ba(m, n_kf, *CAM, n_iters=8)
+    with tracing.capture(str(tmp_path / "prof")):
+        traced = trk.global_ba(m, n_kf, *CAM, n_iters=8)
+    for name in ("kf_R", "kf_t", "lm_X"):
+        assert torch.equal(getattr(plain, name), getattr(traced, name)), name
+    assert not torch.equal(plain.lm_X, m.lm_X)
