@@ -1921,8 +1921,13 @@ def check_global_ba(dev, m):
     memory with the map at its capacity of keyframes and with the keyframe
     arrays cut to the window (equal: the memory follows the window, not
     `max_kf`), and the time and peak memory of the widest window, 256
-    keyframes (the map's keyframes repeated into every slot). Returns the
-    measurements."""
+    keyframes (the map's keyframes repeated into every slot). The first
+    solve of a window's shape captures its stages' CUDA graphs, whose
+    memory stays for every later solve of that shape (`backend/
+    stage_graphs.py`), so a solve of the cut map runs first and both
+    measured solves find the window's graphs captured; a solve whose arrays
+    followed `max_kf` would have another shape, and capture anew inside
+    its measurement. Returns the measurements."""
     import torch
     from orb_slam3_ros2_tpu_torch.frontend import tracking as trk
 
@@ -1946,6 +1951,8 @@ def check_global_ba(dev, m):
 
     cut = m._replace(**{f: getattr(m, f)[:B] for f in m._fields
                         if f.startswith("kf_")})
+    for _ in range(2):  # the window's graphs: all but the refresh, then it
+        trk.global_ba(cut, n_kf, *cam, n_iters=8)
     full_mib, full_ms = peak(m, n_kf)
     cut_mib, cut_ms = peak(cut, n_kf)
     rep = torch.arange(K, device=dev) % n_kf

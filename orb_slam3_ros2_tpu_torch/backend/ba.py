@@ -16,6 +16,13 @@ While a profiler runs, each iteration is a `ba.iteration` span holding
 `ba.refresh_weights` (on the gated iterations), `ba.reduce`,
 `ba.solve_cameras`, `ba.back_substitute` and `ba.cost`, and the final cost
 is one more `ba.cost` (`utils/tracing.span`).
+
+On a CUDA device each of those stages is a CUDA graph, captured the second
+time its shapes and scalars are seen in the process and replayed after
+(`backend/stage_graphs.py`; a capture is a `ba.graph_capture` span): the
+LM accept stays eager, so each stage is still called once an iteration,
+through `schur.*` as before. `bundle_adjust.graph_captures`,
+`.graph_replays` and `.eager_stages` count the stage calls on CUDA.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 
 from orb_slam3_ros2_tpu_torch.backend import residuals as res
 from orb_slam3_ros2_tpu_torch.backend import schur
+from orb_slam3_ros2_tpu_torch.backend import stage_graphs
 from orb_slam3_ros2_tpu_torch.geom import lie
 from orb_slam3_ros2_tpu_torch.utils import tracing
 
@@ -54,18 +62,26 @@ class BAResult(NamedTuple):
     inlier_w: torch.Tensor  # (K, L) final effective weights (post chi² gate)
 
 
-def _step(R, t, X, uv, w_active, fixed, point_valid, fx, fy, cx, cy, lam):
+def _update(R, t, X, dxc, V, M6, bl_t, point_valid):
+    """The landmark step and the pose update: the proposed (R, t, X)."""
+    dxl = schur.landmark_step(V, M6, bl_t, dxc, point_valid)
+    R_new, t_new = lie.se3_retract(R, t, dxc)
+    return lie.se3_normalize(R_new), t_new, X + dxl
+
+
+def _step(R, t, X, uv, w_active, fixed, point_valid, fx, fy, cx, cy, lam,
+          graphs=None):
     """One damped Gauss-Newton step: (R_new, t_new, X_new, cost0)."""
     with tracing.span("ba.reduce"):
         terms = schur.schur_reduce(R, t, X, uv, w_active, fx, fy, cx, cy,
-                                   lam)
+                                   lam, graphs=graphs)
     with tracing.span("ba.solve_cameras"):
         dxc = schur.solve_cameras(terms.Hcc_p, terms.S_off, terms.rhs_p,
-                                  fixed, lam, FIXED_PRIOR)
+                                  fixed, lam, FIXED_PRIOR, graphs=graphs)
     with tracing.span("ba.back_substitute"):
-        dxl = schur.back_substitute(terms, dxc, point_valid)
-        R_new, t_new = lie.se3_retract(R, t, dxc)
-        R_new, X_new = lie.se3_normalize(R_new), X + dxl
+        R_new, t_new, X_new = stage_graphs.run(
+            graphs, "update", _update, R, t, X, dxc, terms.V, terms.M6,
+            terms.bl_t, point_valid)
     return R_new, t_new, X_new, terms.cost0
 
 
@@ -88,7 +104,9 @@ def bundle_adjust(
 ) -> BAResult:
     """Robust LM bundle adjustment over a fixed-size window; the chi² gate
     is refreshed every `reclassify_every` iterations, never before the
-    first (optimize on all observations first, then gate)."""
+    first (optimize on all observations first, then gate). On a CUDA
+    device the stages replay their graphs (the module's docstring)."""
+    graphs = _GRAPHS.solve(p.R, p.X, fx, fy, cx, cy, chi2_th)
     w_base = p.w
     R, t, X, w_active = p.R, p.t, p.X, w_base
     # a fill on the device: `torch.tensor(1e-4, device=...)` copies from
@@ -99,13 +117,15 @@ def bundle_adjust(
             if it > 0 and it % reclassify_every == 0:
                 with tracing.span("ba.refresh_weights"):
                     w_active = schur.refresh_weights(R, t, X, p.uv, w_base,
-                                                     fx, fy, cx, cy, chi2_th)
+                                                     fx, fy, cx, cy, chi2_th,
+                                                     graphs=graphs)
             R_new, t_new, X_new, cost0 = _step(R, t, X, p.uv, w_active,
                                                p.fixed, p.point_valid, fx,
-                                               fy, cx, cy, lam)
+                                               fy, cx, cy, lam, graphs)
             with tracing.span("ba.cost"):
                 cost1 = schur.robust_cost(R_new, t_new, X_new, p.uv,
-                                          w_active, fx, fy, cx, cy)
+                                          w_active, fx, fy, cx, cy,
+                                          graphs=graphs)
                 better = cost1 < cost0
                 R = torch.where(better, R_new, R)
                 t = torch.where(better, t_new, t)
@@ -113,5 +133,20 @@ def bundle_adjust(
                 lam = torch.where(better, lam * 0.3, lam * 5.0).clamp(1e-9,
                                                                       1e3)
     with tracing.span("ba.cost"):
-        cost = schur.robust_cost(R, t, X, p.uv, w_active, fx, fy, cx, cy)
+        cost = schur.robust_cost(R, t, X, p.uv, w_active, fx, fy, cx, cy,
+                                 graphs=graphs)
     return BAResult(R=R, t=t, X=X, cost=cost, inlier_w=w_active)
+
+
+def _count(event: str) -> None:
+    """Bump `bundle_adjust.<event>` through the module's name, as the
+    kernel wrappers bump `launches` (a wrapper set there counts)."""
+    setattr(bundle_adjust, event, getattr(bundle_adjust, event) + 1)
+
+
+bundle_adjust.graph_captures = 0
+bundle_adjust.graph_replays = 0
+bundle_adjust.eager_stages = 0
+# one per process: a stage's capture pays off over every later solve of
+# its shape, whoever calls `bundle_adjust`
+_GRAPHS = stage_graphs.StageGraphs(_count)

@@ -11,6 +11,15 @@ The JAX version keeps every large intermediate landmark-minor, `(K, L)`
 planes and `(3, 6K, L)` cross terms, for the TPU's (8, 128) tiling. The
 same planes are ordinary batched torch ops here; only the layout's reason
 is gone, the arithmetic is the same.
+
+`schur_reduce`, `solve_cameras`, `robust_cost` and `refresh_weights` take
+a keyword `graphs`, one solve's CUDA graphs (`backend/stage_graphs.py`),
+which `backend/ba.py` `bundle_adjust` passes: the stage then replays its
+graph, with the same kernels in the same order. What they return that a
+caller may keep (the costs, the gate) is a fresh tensor; the rest is the
+graph's, as `SchurTerms` and `solve_cameras` say. Without `graphs` (the
+CPU, and the direct callers: `vi_ba`, `parallel/sharded_*`) every call
+runs eagerly.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import math
 import torch
 
 from orb_slam3_ros2_tpu_torch.backend import residuals as res
+from orb_slam3_ros2_tpu_torch.backend import stage_graphs
 
 HUBER_2 = res.CHI2_MONO  # chi2 threshold = squared Huber delta
 _DELTA = math.sqrt(HUBER_2)
@@ -29,7 +39,12 @@ _DELTA = math.sqrt(HUBER_2)
 
 class SchurTerms(NamedTuple):
     """Reduced camera system of one landmark set plus back-substitution
-    state (the JAX version's fields, same shapes)."""
+    state (the JAX version's fields, same shapes).
+
+    From a `schur_reduce` with `graphs`, every field but `cost0` is the
+    graph's own buffer (`V` is 151 MB at 256 x 8192): it holds for one LM
+    iteration, until the next `schur_reduce` of the same problem replays.
+    `cost0` is always a fresh tensor."""
 
     Hcc_p: torch.Tensor  # (K, 6, 6) camera Hessian blocks (undamped)
     S_off: torch.Tensor  # (6K, 6K) = V V^T (subtract from blockdiag(Hcc))
@@ -100,27 +115,50 @@ def _huber_cost(r2, w_active):
                      * (w_active > 0))
 
 
-def robust_cost(R, t, X, uv, w_active, fx, fy, cx, cy):
+def robust_cost(R, t, X, uv, w_active, fx, fy, cx, cy, *, graphs=None):
     """Robust (Huber) total cost — the cost-only evaluation for LM
     accept/reject."""
+    if graphs is not None:
+        return graphs.run("cost", _robust_cost, R, t, X, uv, w_active, fx,
+                          fy, cx, cy).clone()
+    return _robust_cost(R, t, X, uv, w_active, fx, fy, cx, cy)
+
+
+def _robust_cost(R, t, X, uv, w_active, fx, fy, cx, cy):
     r0, r1, _ = project_planes(R, t, X, uv, fx, fy, cx, cy)
     return _huber_cost((r0 * r0 + r1 * r1) * w_active, w_active)
 
 
 def refresh_weights(R, t, X, uv, w_base, fx, fy, cx, cy,
-                    chi2_th: float = HUBER_2):
+                    chi2_th: float = HUBER_2, *, graphs=None):
     """chi² re-classification against the BASE weights."""
+    if graphs is not None:
+        return graphs.run("refresh_weights", _refresh_weights, R, t, X, uv,
+                          w_base, fx, fy, cx, cy, chi2_th).clone()
+    return _refresh_weights(R, t, X, uv, w_base, fx, fy, cx, cy, chi2_th)
+
+
+def _refresh_weights(R, t, X, uv, w_base, fx, fy, cx, cy, chi2_th):
     r0, r1, depth = project_planes(R, t, X, uv, fx, fy, cx, cy)
     chi2 = (r0 * r0 + r1 * r1) * w_base
     keep = (chi2 <= chi2_th) & (depth > 0.05) & (w_base > 0)
     return w_base * keep
 
 
-def schur_reduce(R, t, X, uv, w_active, fx, fy, cx, cy, lam) -> SchurTerms:
+def schur_reduce(R, t, X, uv, w_active, fx, fy, cx, cy, lam, *,
+                 graphs=None) -> SchurTerms:
     """Linearize and eliminate the landmark block.
 
     R (K,3,3), t (K,3), X (L,3), uv (K,L,2), w_active (K,L). `lam` damps
     the landmark blocks here; camera damping happens in `solve_cameras`."""
+    if graphs is not None:
+        terms = graphs.run("reduce", _schur_reduce, R, t, X, uv, w_active,
+                           fx, fy, cx, cy, lam)
+        return terms._replace(cost0=terms.cost0.clone())
+    return _schur_reduce(R, t, X, uv, w_active, fx, fy, cx, cy, lam)
+
+
+def _schur_reduce(R, t, X, uv, w_active, fx, fy, cx, cy, lam) -> SchurTerms:
     K, L = w_active.shape
     xc = torch.einsum("kab,bl->kal", R, X.T) + t[:, :, None]  # (K, 3, L)
     x, y, depth = xc[:, 0], xc[:, 1], xc[:, 2]
@@ -209,11 +247,18 @@ def schur_reduce(R, t, X, uv, w_active, fx, fy, cx, cy, lam) -> SchurTerms:
                       bl_t=bl_t, cost0=cost0)
 
 
-def solve_cameras(Hcc, S_off, rhs, fixed, lam, fixed_prior: float):
+def solve_cameras(Hcc, S_off, rhs, fixed, lam, fixed_prior: float, *,
+                  graphs=None):
     """Damp and gauge-pin the camera system and solve for dxc (K, 6).
 
     `torch.linalg.solve_ex` does not check for a singular system, so the
-    solve makes no host sync; the fixed prior keeps the system regular."""
+    solve makes no host sync; the fixed prior keeps the system regular.
+    With `graphs`, dxc is the graph's buffer, as `SchurTerms`' fields."""
+    return stage_graphs.run(graphs, "solve_cameras", _solve_cameras, Hcc,
+                            S_off, rhs, fixed, lam, fixed_prior)
+
+
+def _solve_cameras(Hcc, S_off, rhs, fixed, lam, fixed_prior):
     K = Hcc.shape[0]
     eye6 = torch.eye(6, dtype=Hcc.dtype, device=Hcc.device)
     prior = torch.where(fixed, fixed_prior, 0.0).to(Hcc.dtype)
@@ -227,9 +272,14 @@ def solve_cameras(Hcc, S_off, rhs, fixed, lam, fixed_prior: float):
 
 def back_substitute(terms: SchurTerms, dxc, point_valid):
     """dxl = -M (M^T bl + V^T dxc): (L, 3)."""
-    g = torch.einsum("cpl,p->cl", terms.V, dxc.reshape(-1))
-    s = terms.bl_t + g
-    m00, m01, m02, m11, m12, m22 = terms.M6
+    return landmark_step(terms.V, terms.M6, terms.bl_t, dxc, point_valid)
+
+
+def landmark_step(V, M6, bl_t, dxc, point_valid):
+    """`back_substitute` on the terms it reads."""
+    g = torch.einsum("cpl,p->cl", V, dxc.reshape(-1))
+    s = bl_t + g
+    m00, m01, m02, m11, m12, m22 = M6
     dxl = torch.stack([-(m00 * s[0] + m01 * s[1] + m02 * s[2]),
                        -(m11 * s[1] + m12 * s[2]),
                        -(m22 * s[2])], dim=-1)

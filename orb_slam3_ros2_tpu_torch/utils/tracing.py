@@ -37,6 +37,10 @@ The bundle adjustment opens these spans, nested as its calls nest:
         ba.cost          the final cost
         ba.write_back    the pose scatters and the landmark select
 
+and, inside a stage, `ba.graph_capture` where the stage's CUDA graph is
+captured (`backend/stage_graphs.py`; on the card a stage otherwise
+replays its graph inside its span).
+
 They are read in a capture's Chrome trace (`stage_summary`) and by the
 benchmark's backend-BA metrics (`slambench/ba_spans.py`).
 """
