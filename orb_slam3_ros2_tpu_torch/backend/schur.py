@@ -17,9 +17,16 @@ a keyword `graphs`, one solve's CUDA graphs (`backend/stage_graphs.py`),
 which `backend/ba.py` `bundle_adjust` passes: the stage then replays its
 graph, with the same kernels in the same order. What they return that a
 caller may keep (the costs, the gate) is a fresh tensor; the rest is the
-graph's, as `SchurTerms` and `solve_cameras` say. Without `graphs` (the
-CPU, and the direct callers: `vi_ba`, `parallel/sharded_*`) every call
-runs eagerly.
+graph's, as `SchurTerms` and `solve_cameras` say; `backend/vi_ba.py`
+passes its own solve's graphs to `schur_reduce`. Without `graphs` (the
+CPU, and the direct callers `parallel/sharded_*`) every call runs
+eagerly.
+
+`schur_reduce(..., dtype=torch.float64)` (`backend/vi_ba.py`) linearizes
+in float64, residuals, gradient and planes, and forms only S = V V^T in
+the problem's float32: near the optimum the float32 residuals' rounding
+(~2e-5 px on ~300 px projections) is a large share of the gradient they
+sum to, while S is as exact in float32 as the solve needs.
 """
 
 from __future__ import annotations
@@ -146,20 +153,27 @@ def _refresh_weights(R, t, X, uv, w_base, fx, fy, cx, cy, chi2_th):
 
 
 def schur_reduce(R, t, X, uv, w_active, fx, fy, cx, cy, lam, *,
-                 graphs=None) -> SchurTerms:
+                 graphs=None, dtype=None) -> SchurTerms:
     """Linearize and eliminate the landmark block.
 
     R (K,3,3), t (K,3), X (L,3), uv (K,L,2), w_active (K,L). `lam` damps
-    the landmark blocks here; camera damping happens in `solve_cameras`."""
+    the landmark blocks here; camera damping happens in `solve_cameras`.
+    `dtype` (default R's): the dtype of every term but `S_off`, which
+    keeps R's (module docstring)."""
     if graphs is not None:
         terms = graphs.run("reduce", _schur_reduce, R, t, X, uv, w_active,
-                           fx, fy, cx, cy, lam)
+                           fx, fy, cx, cy, lam, dtype)
         return terms._replace(cost0=terms.cost0.clone())
-    return _schur_reduce(R, t, X, uv, w_active, fx, fy, cx, cy, lam)
+    return _schur_reduce(R, t, X, uv, w_active, fx, fy, cx, cy, lam, dtype)
 
 
-def _schur_reduce(R, t, X, uv, w_active, fx, fy, cx, cy, lam) -> SchurTerms:
+def _schur_reduce(R, t, X, uv, w_active, fx, fy, cx, cy, lam,
+                  dtype=None) -> SchurTerms:
     K, L = w_active.shape
+    s_dtype = R.dtype
+    if dtype is not None:
+        R, t, X, uv, w_active = (a.to(dtype) for a in (R, t, X, uv,
+                                                        w_active))
     xc = torch.einsum("kab,bl->kal", R, X.T) + t[:, :, None]  # (K, 3, L)
     x, y, depth = xc[:, 0], xc[:, 1], xc[:, 2]
     iz = _safe_inv_depth(depth)
@@ -241,7 +255,8 @@ def _schur_reduce(R, t, X, uv, w_active, fx, fy, cx, cy, lam) -> SchurTerms:
         Jc0 * t02[:, None, :] + Jc1 * t12[:, None, :],
     ]).reshape(3, K * 6, L)
 
-    S_off = torch.einsum("cpl,cql->pq", V, V)  # (6K, 6K)
+    Vs = V.to(s_dtype)
+    S_off = torch.einsum("cpl,cql->pq", Vs, Vs)  # (6K, 6K)
     rhs_p = bc_p - torch.einsum("cpl,cl->p", V, bl_t).reshape(K, 6)
     return SchurTerms(Hcc_p=Hcc_p, S_off=S_off, rhs_p=rhs_p, V=V, M6=M6,
                       bl_t=bl_t, cost0=cost0)

@@ -1,4 +1,5 @@
-"""CUDA graphs of the bundle adjustment's LM stages.
+"""CUDA graphs of the bundle adjustments' LM stages (`backend/ba.py`,
+`backend/vi_ba.py`).
 
 An LM iteration of `backend/ba.py` issues some 700 small device operations
 (elementwise ops on (K, L) planes, `block_diag`'s copies, the LU), each of

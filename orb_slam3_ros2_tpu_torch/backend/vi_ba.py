@@ -16,6 +16,36 @@ iteration. The JAX version takes `jacfwd` per interval under `vmap`; here
 forward-mode pass, which gives every interval's (9, 26) block. The
 iteration `lax.scan` is a Python loop whose LM accept/reject is a
 `torch.where`: no host sync.
+
+While a profiler runs, each iteration is a `vi.iteration` span holding
+`vi.reduce` (the Schur reduce), `vi.inertial` (the inertial residuals,
+their Jacobians and the products JᵀJ, Jᵀr), `vi.solve` (the assembly of
+the (9K+8)² system: the visual block, the inertial scatter and the priors;
+the damping and the dense solve), `vi.back_substitute` (the landmark step
+and the candidate state) and `vi.cost` (both total costs and the LM
+accept) (`utils/tracing.span`).
+
+On a CUDA device the reduce, the inertial terms, the solve, the update
+and the two costs are CUDA graphs, as `backend/ba.py`'s stages are
+(`backend/stage_graphs.py`, a cache of this module's own): an iteration
+is six graph replays, the copies of their inputs and the eager accept.
+`vi_bundle_adjust.graph_captures`, `.graph_replays` and `.eager_stages`
+count the stage calls on CUDA; `.intervals` and `.state_dim` hold the last
+solve's count of inertial intervals and its state dimension 9K + 8.
+
+Precision. The state stays in the problem's dtype (the map's float32);
+each iteration linearizes it in `LIN` = float64: the reprojection and
+inertial residuals, their Jacobians, the gradient, the (9K+8)² system and
+its LU, and both total costs. Only the reduce's S = V Vᵀ is formed in the
+problem's dtype (`schur.schur_reduce(..., dtype=LIN)`). Near the optimum
+the gradient is a sum of residuals that cancel, and float32 residuals
+(~2e-5 px of rounding on ~300 px projections; whitened preintegration
+residuals of O(1) differences scaled by up to ~6.5e3) left it ~2e-3 off
+in relative terms at 32 keyframes: the map's weak directions turned that
+into steps 1e-3–1e-2 off the float64 ones from iteration 3 on, and at
+256 keyframes into LM decisions that went the other way. S in float32
+parts by ~2e-8 from float64 and moves the step by 1e-6–1e-4
+(`tests/test_slambench_vi_gba.py`).
 """
 
 from __future__ import annotations
@@ -26,11 +56,14 @@ import torch
 
 from orb_slam3_ros2_tpu_torch.backend import ba as ba_mod
 from orb_slam3_ros2_tpu_torch.backend import schur
+from orb_slam3_ros2_tpu_torch.backend import stage_graphs
 from orb_slam3_ros2_tpu_torch.backend import jacobian as jac_mod
 from orb_slam3_ros2_tpu_torch.geom import lie
 from orb_slam3_ros2_tpu_torch.imu import preintegration as pre_mod
+from orb_slam3_ros2_tpu_torch.utils import tracing
 
 FIXED_PRIOR = ba_mod.FIXED_PRIOR
+LIN = torch.float64  # the dtype of the linearization (module docstring)
 N_TAN = 26  # [ξ_i(6), ξ_j(6), v_i(3), v_j(3), bg(3), ba(3), θg(2)]
 
 
@@ -168,6 +201,8 @@ def vi_bundle_adjust(
         t_bc = torch.zeros(3, dtype=dt_, device=dev)
     bg_c = bg0 if bg_prior_center is None else bg_prior_center
     ba_c = ba0 if ba_prior_center is None else ba_prior_center
+    pres = pre_mod.Preintegrated(*(x.to(LIN) for x in pres))
+    R_bc, t_bc = R_bc.to(LIN), t_bc.to(LIN)
     Wmats = _whiteners(pres)
     D = 9 * K + 8  # poses, velocities, biases, gravity direction
     col = _columns(K, E, dev)
@@ -177,73 +212,163 @@ def vi_bundle_adjust(
     # bias priors (centred at bg_c / ba_c) and the gauge priors: θg free at
     # init (VertexGDir), pinned for the local windows, where the global
     # gravity alignment must not drift per window
-    diag_prior = torch.zeros((D,), dtype=dt_, device=dev)
+    diag_prior = torch.zeros((D,), dtype=LIN, device=dev)
     diag_prior[9 * K:9 * K + 3] += prior_bg
     diag_prior[9 * K + 3:9 * K + 6] += prior_ba
     diag_prior[9 * K + 6:] += 1e-6 if opt_gravity else FIXED_PRIOR
     diag_prior[:6 * K] += torch.where(p.fixed, FIXED_PRIOR,
-                                      0.0).to(dt_).repeat_interleave(6)
+                                      0.0).to(LIN).repeat_interleave(6)
 
-    def total_cost(Rr, tt, XX, vv, bgg, baa, tg, rr=None):
-        """Robust visual + inertial + prior cost; `rr` are the state's
-        inertial residuals when they are at hand."""
-        c_vis = schur.robust_cost(Rr, tt, XX, p.uv, p.w, fx, fy, cx, cy)
-        if rr is None:
-            rr, _ = _inertial_terms(pres, Rr, tt, vv, bgg, baa, tg, Wmats,
-                                    R_bc, t_bc, n_intervals=E,
-                                    jacobian=False)
-        return (c_vis + torch.sum(rr * rr)
-                + prior_bg * torch.sum((bgg - bg_c) ** 2)
-                + prior_ba * torch.sum((baa - ba_c) ** 2))
-
+    graphs = _GRAPHS.solve(p.R, p.X, pres.dR, fx, fy, cx, cy)
     R, t, X, v, bg, ba = p.R, p.t, p.X, v0, bg0, ba0
     thg = torch.zeros(2, dtype=dt_, device=dev)
-    lam = torch.tensor(1e-4, dtype=torch.float32, device=dev)
+    # a fill on the device: `torch.tensor(1e-4, device=...)` copies from
+    # pageable host memory and waits for the stream
+    lam = torch.full((), 1e-4, dtype=torch.float32, device=dev)
+    vi_bundle_adjust.intervals = E
+    vi_bundle_adjust.state_dim = D
+    scalars = (fx, fy, cx, cy, prior_bg, prior_ba)
     cost = None
     for _ in range(n_iters):
-        # visual part: the Schur-reduced camera system
-        terms = schur.schur_reduce(R, t, X, p.uv, p.w, fx, fy, cx, cy, lam)
-        H = torch.zeros((D, D), dtype=dt_, device=dev)
-        b = torch.zeros((D,), dtype=dt_, device=dev)
-        H[:6 * K, :6 * K] = -terms.S_off + torch.block_diag(
-            *terms.Hcc_p.unbind(0))
-        b[:6 * K] = terms.rhs_p.reshape(-1)
-        # inertial part
-        r_i, J_i = _inertial_terms(pres, R, t, v, bg, ba, thg, Wmats, R_bc,
-                                   t_bc, n_intervals=E)
-        H = H.index_put((rows_idx, cols_idx),
-                        torch.einsum("eai,eaj->eij", J_i, J_i),
-                        accumulate=True)
-        b = b.index_put((col,), torch.einsum("eai,ea->ei", J_i, r_i),
-                        accumulate=True)
-        b = torch.cat([b[:9 * K], b[9 * K:9 * K + 3] + prior_bg * (bg - bg_c),
-                       b[9 * K + 3:9 * K + 6] + prior_ba * (ba - ba_c),
-                       b[9 * K + 6:]])
-        Hd = H + torch.diag(lam * torch.diagonal(H).abs() + diag_prior
-                            + 1e-8)
-        dx = -torch.linalg.solve_ex(Hd, b[:, None]).result[:, 0]
-        dxc = dx[:6 * K].reshape(K, 6)
-        dxl = schur.back_substitute(terms, dxc, p.point_valid)
-        R_new, t_new = lie.se3_retract(R, t, dxc)
-        R_new = lie.se3_normalize(R_new)
-        X_new = X + dxl
-        v_new = v + dx[6 * K:9 * K].reshape(K, 3)
-        bg_new = bg + dx[9 * K:9 * K + 3]
-        ba_new = ba + dx[9 * K + 3:9 * K + 6]
-        thg_new = thg + dx[9 * K + 6:]
-        # accept/reject on the total cost (the current state's inertial
-        # residuals came with the Jacobian)
-        c0 = total_cost(R, t, X, v, bg, ba, thg, rr=r_i)
-        c1 = total_cost(R_new, t_new, X_new, v_new, bg_new, ba_new, thg_new)
-        better = c1 < c0
-        R = torch.where(better, R_new, R)
-        t = torch.where(better, t_new, t)
-        X = torch.where(better, X_new, X)
-        v = torch.where(better, v_new, v)
-        bg = torch.where(better, bg_new, bg)
-        ba = torch.where(better, ba_new, ba)
-        thg = torch.where(better, thg_new, thg)
-        lam = torch.where(better, lam * 0.3, lam * 5.0).clamp(1e-9, 1e3)
-        # the accepted state's cost (a rejected trial may be non-finite)
-        cost = torch.where(better, c1, c0)
+        with tracing.span("vi.iteration"):
+            # visual part: the Schur-reduced camera system
+            with tracing.span("vi.reduce"):
+                terms = schur.schur_reduce(R, t, X, p.uv, p.w, fx, fy, cx,
+                                           cy, lam, graphs=graphs, dtype=LIN)
+            with tracing.span("vi.inertial"):
+                r_i, JtJ, Jtr = stage_graphs.run(
+                    graphs, "vi_inertial", _inertial_stage, R, t, v, bg, ba,
+                    thg, Wmats, R_bc, t_bc, E, *pres)
+            with tracing.span("vi.solve"):
+                dx = stage_graphs.run(
+                    graphs, "vi_solve", _solve, terms.S_off, terms.Hcc_p,
+                    terms.rhs_p, JtJ, Jtr, rows_idx, cols_idx, col, bg, ba,
+                    bg_c, ba_c, lam, diag_prior, prior_bg, prior_ba)
+            with tracing.span("vi.back_substitute"):
+                # the candidate is cloned off the update's graph: the cost
+                # graph replays before the candidate is read, and a graph
+                # captured before the update's (the cost's is) may keep its
+                # temporaries where the update's graph keeps its outputs
+                R_new, t_new, X_new, v_new, bg_new, ba_new, thg_new = (
+                    x.clone() for x in stage_graphs.run(
+                        graphs, "vi_update", _update, terms.V, terms.M6,
+                        terms.bl_t, p.point_valid, dx, R, t, X, v, bg, ba,
+                        thg))
+            with tracing.span("vi.cost"):
+                # accept/reject on the total cost (the current state's
+                # inertial residuals came with the Jacobian); the costs are
+                # cloned off the graphs' buffers, as they are handed on
+                c0 = stage_graphs.run(
+                    graphs, "vi_cost", _total_cost, R, t, X, bg, ba, r_i,
+                    p.uv, p.w, bg_c, ba_c, *scalars).clone()
+                c1 = stage_graphs.run(
+                    graphs, "vi_candidate_cost", _candidate_cost, R_new,
+                    t_new, X_new, v_new, bg_new, ba_new, thg_new, p.uv, p.w,
+                    bg_c, ba_c, *scalars, Wmats, R_bc, t_bc, E,
+                    *pres).clone()
+                better = accept(c0, c1)
+                R = torch.where(better, R_new, R)
+                t = torch.where(better, t_new, t)
+                X = torch.where(better, X_new, X)
+                v = torch.where(better, v_new, v)
+                bg = torch.where(better, bg_new, bg)
+                ba = torch.where(better, ba_new, ba)
+                thg = torch.where(better, thg_new, thg)
+                lam = torch.where(better, lam * 0.3, lam * 5.0).clamp(1e-9,
+                                                                      1e3)
+                # the accepted state's cost (a rejected trial may be
+                # non-finite)
+                cost = torch.where(better, c1, c0)
     return VIBAResult(R=R, t=t, X=X, v=v, bg=bg, ba=ba, cost=cost, thg=thg)
+
+
+def _lin(*xs):
+    return tuple(x.to(LIN) for x in xs)
+
+
+def _inertial_stage(R, t, v, bg, ba, thg, Wmats, R_bc, t_bc, E, *pres):
+    """The inertial residuals (E, 9) of the first E intervals and their
+    products JᵀJ (E, 26, 26) and Jᵀr (E, 26), in `LIN`."""
+    r_i, J_i = _inertial_terms(pre_mod.Preintegrated(*pres),
+                               *_lin(R, t, v, bg, ba, thg), Wmats, R_bc,
+                               t_bc, n_intervals=E)
+    return (r_i, torch.einsum("eai,eaj->eij", J_i, J_i),
+            torch.einsum("eai,ea->ei", J_i, r_i))
+
+
+def _solve(S_off, Hcc_p, rhs_p, JtJ, Jtr, rows_idx, cols_idx, col, bg, ba,
+           bg_c, ba_c, lam, diag_prior, prior_bg, prior_ba):
+    """The (9K+8)² system, damped, and its step dx, in `LIN`."""
+    K, D = Hcc_p.shape[0], diag_prior.shape[0]
+    bg, ba, bg_c, ba_c = _lin(bg, ba, bg_c, ba_c)
+    # the inertial blocks are added onto the visual ones, in the JAX
+    # version's order of the sums
+    H = torch.zeros((D, D), dtype=LIN, device=Hcc_p.device)
+    b = torch.zeros((D,), dtype=LIN, device=Hcc_p.device)
+    H[:6 * K, :6 * K] = -S_off.to(LIN) + torch.block_diag(*Hcc_p.unbind(0))
+    b[:6 * K] = rhs_p.reshape(-1)
+    H = H.index_put((rows_idx, cols_idx), JtJ, accumulate=True)
+    b = b.index_put((col,), Jtr, accumulate=True)
+    b = torch.cat([b[:9 * K], b[9 * K:9 * K + 3] + prior_bg * (bg - bg_c),
+                   b[9 * K + 3:9 * K + 6] + prior_ba * (ba - ba_c),
+                   b[9 * K + 6:]])
+    Hd = H + torch.diag(lam * torch.diagonal(H).abs() + diag_prior + 1e-8)
+    return -torch.linalg.solve_ex(Hd, b[:, None]).result[:, 0]
+
+
+def _update(V, M6, bl_t, point_valid, dx, R, t, X, v, bg, ba, thg):
+    """The landmark step and the candidate state (in the state's dtype)."""
+    K = R.shape[0]
+    dxl = schur.landmark_step(V, M6, bl_t, dx[:6 * K].reshape(K, 6),
+                              point_valid).to(X.dtype)
+    dx = dx.to(R.dtype)
+    dxc = dx[:6 * K].reshape(K, 6)
+    R_new, t_new = lie.se3_retract(R, t, dxc)
+    return (lie.se3_normalize(R_new), t_new, X + dxl,
+            v + dx[6 * K:9 * K].reshape(K, 3), bg + dx[9 * K:9 * K + 3],
+            ba + dx[9 * K + 3:9 * K + 6], thg + dx[9 * K + 6:])
+
+
+def _total_cost(R, t, X, bg, ba, rr, uv, w, bg_c, ba_c, fx, fy, cx, cy,
+                prior_bg, prior_ba):
+    """Robust visual + inertial + prior cost, in `LIN`, of a state whose
+    inertial residuals are `rr`."""
+    R, t, X, bg, ba, uv, w, bg_c, ba_c = _lin(R, t, X, bg, ba, uv, w, bg_c,
+                                              ba_c)
+    c_vis = schur.robust_cost(R, t, X, uv, w, fx, fy, cx, cy)
+    return (c_vis + torch.sum(rr * rr)
+            + prior_bg * torch.sum((bg - bg_c) ** 2)
+            + prior_ba * torch.sum((ba - ba_c) ** 2))
+
+
+def _candidate_cost(R, t, X, v, bg, ba, thg, uv, w, bg_c, ba_c, fx, fy, cx,
+                    cy, prior_bg, prior_ba, Wmats, R_bc, t_bc, E, *pres):
+    """`_total_cost` of a candidate, its inertial residuals evaluated."""
+    rr, _ = _inertial_terms(pre_mod.Preintegrated(*pres),
+                            *_lin(R, t, v, bg, ba, thg), Wmats, R_bc, t_bc,
+                            n_intervals=E, jacobian=False)
+    return _total_cost(R, t, X, bg, ba, rr, uv, w, bg_c, ba_c, fx, fy, cx,
+                       cy, prior_bg, prior_ba)
+
+
+def accept(c0: torch.Tensor, c1: torch.Tensor) -> torch.Tensor:
+    """The LM accept of one iteration, a device bool (no host sync): the
+    candidate's total cost `c1` below the linearization point's `c0`.
+    Called through the module's name, so that a wrapper sees each
+    iteration's two costs."""
+    return c1 < c0
+
+
+def _count(event: str) -> None:
+    """Bump `vi_bundle_adjust.<event>` through the module's name."""
+    setattr(vi_bundle_adjust, event, getattr(vi_bundle_adjust, event) + 1)
+
+
+vi_bundle_adjust.intervals = 0
+vi_bundle_adjust.state_dim = 0
+vi_bundle_adjust.graph_captures = 0
+vi_bundle_adjust.graph_replays = 0
+vi_bundle_adjust.eager_stages = 0
+# one per process, apart from `backend/ba.py`'s: a stage's capture pays
+# off over every later solve of its problem's shape
+_GRAPHS = stage_graphs.StageGraphs(_count)

@@ -49,8 +49,12 @@ class Preintegrated(NamedTuple):
 
 
 def gravity_like(x: torch.Tensor) -> torch.Tensor:
-    """g_w on the device and dtype of `x`."""
-    return torch.tensor(GRAVITY, dtype=x.dtype, device=x.device)
+    """g_w on the device and dtype of `x`, made there by fills: a
+    `torch.tensor` of the host tuple (or an item assignment) copies from
+    pageable host memory and waits for the stream. The same bits."""
+    g = torch.zeros(3, dtype=x.dtype, device=x.device)
+    g[2:].fill_(GRAVITY[2])
+    return g
 
 
 def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -347,29 +347,38 @@ def vi_ba2(m: ms.MapState, window_ids, fixed_mask, pres, v0, bg, ba, fx, fy,
     `local_ba`. The accel-bias prior is anchored at zero, not at the
     running estimate: at these excitations ba is confounded with scale, and
     a prior re-centred on each window let it absorb a 23% map-scale error
-    in the JAX package. Returns (m', v, bg, ba, cost, thg)."""
-    W = window_ids.shape[0]
-    dev = window_ids.device
-    same = window_ids[None, :] == window_ids[:, None]
-    earlier = torch.ones((W, W), dtype=torch.bool, device=dev).tril(-1)
-    first_occurrence = ~(same & earlier).any(dim=1)
-    uv_t, w_t, kf_ok = ms.observation_table(m, window_ids)
-    active = kf_ok & first_occurrence
-    ids = window_ids.long()
-    p = ba_mod.BAProblem(
-        R=m.kf_R[ids], t=m.kf_t[ids], X=m.lm_X, uv=uv_t,
-        w=w_t * active[:, None], fixed=fixed_mask | ~active,
-        point_valid=m.lm_valid)
-    out = vi_ba_mod.vi_bundle_adjust(
-        p, pres, v0, bg, ba, fx, fy, cx, cy, R_bc=R_bc, t_bc=t_bc,
-        n_iters=n_iters, opt_gravity=opt_gravity, n_inertial=n_inertial,
-        prior_bg=1e2, prior_ba=1e6, ba_prior_center=torch.zeros_like(ba))
-    K = m.kf_R.shape[0]
-    write_ids = torch.where(active, ids, K)
-    kf_R = ms._scatter_drop(m.kf_R, write_ids, out.R)
-    kf_t = ms._scatter_drop(m.kf_t, write_ids, out.t)
-    moved = (w_t * active[:, None]).sum(0) > 0
-    lm_X = torch.where(moved[:, None], out.X, m.lm_X)
+    in the JAX package. Returns (m', v, bg, ba, cost, thg).
+
+    While a profiler runs it is a `vi.ba` span holding `vi.obs_table` (the
+    observation table and the problem's gather), the solve's
+    `vi.iteration` spans and `vi.write_back` (the pose scatters and the
+    landmark select)."""
+    with tracing.span("vi.ba"):
+        with tracing.span("vi.obs_table"):
+            W = window_ids.shape[0]
+            dev = window_ids.device
+            same = window_ids[None, :] == window_ids[:, None]
+            earlier = torch.ones((W, W), dtype=torch.bool,
+                                 device=dev).tril(-1)
+            first_occurrence = ~(same & earlier).any(dim=1)
+            uv_t, w_t, kf_ok = ms.observation_table(m, window_ids)
+            active = kf_ok & first_occurrence
+            ids = window_ids.long()
+            p = ba_mod.BAProblem(
+                R=m.kf_R[ids], t=m.kf_t[ids], X=m.lm_X, uv=uv_t,
+                w=w_t * active[:, None], fixed=fixed_mask | ~active,
+                point_valid=m.lm_valid)
+        out = vi_ba_mod.vi_bundle_adjust(
+            p, pres, v0, bg, ba, fx, fy, cx, cy, R_bc=R_bc, t_bc=t_bc,
+            n_iters=n_iters, opt_gravity=opt_gravity, n_inertial=n_inertial,
+            prior_bg=1e2, prior_ba=1e6, ba_prior_center=torch.zeros_like(ba))
+        with tracing.span("vi.write_back"):
+            K = m.kf_R.shape[0]
+            write_ids = torch.where(active, ids, K)
+            kf_R = ms._scatter_drop(m.kf_R, write_ids, out.R)
+            kf_t = ms._scatter_drop(m.kf_t, write_ids, out.t)
+            moved = (w_t * active[:, None]).sum(0) > 0
+            lm_X = torch.where(moved[:, None], out.X, m.lm_X)
     return (m._replace(kf_R=kf_R, kf_t=kf_t, lm_X=lm_X), out.v, out.bg,
             out.ba, out.cost, out.thg)
 

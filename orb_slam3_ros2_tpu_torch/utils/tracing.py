@@ -39,10 +39,26 @@ The bundle adjustment opens these spans, nested as its calls nest:
 
 and, inside a stage, `ba.graph_capture` where the stage's CUDA graph is
 captured (`backend/stage_graphs.py`; on the card a stage otherwise
-replays its graph inside its span).
+replays its graph inside its span). The visual-inertial BA opens
+
+    vi.ba                runtime/system.py vi_ba2
+      vi.obs_table       the observation table and the problem's gather
+      vi.iteration       backend/vi_ba.py vi_bundle_adjust, one LM iteration
+        vi.reduce              schur.schur_reduce
+        vi.inertial            the inertial residuals, their Jacobians and
+                               their products JᵀJ, Jᵀr
+        vi.solve               the (9K+8)² system's assembly (the visual
+                               block, the inertial scatter, the priors),
+                               the damping and solve_ex
+        vi.back_substitute     the landmark step and the state update
+        vi.cost                both total costs and the LM accept
+      vi.write_back      the pose scatters and the landmark select
+
+(a VI stage's CUDA graph is captured inside a `ba.graph_capture` span too)
 
 They are read in a capture's Chrome trace (`stage_summary`) and by the
-benchmark's backend-BA metrics (`slambench/ba_spans.py`).
+benchmark's backend-BA metrics (`slambench/ba_spans.py`, `slambench/
+vi_spans.py`).
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
 """The BA's LM stages as CUDA graphs (`backend/stage_graphs.py`): a solve
 that replays is bitwise the eager solve, what a caller keeps is never a
 graph's buffer, each key is captured once, and the direct callers of
-`schur.*` stay eager. The tests marked `cuda` skip without a card; the
+`schur.*` leave `bundle_adjust`'s graphs alone (the sharded BAs stay
+eager; the VI BA keeps graphs of its own, `tests/test_torch_vi_ba_no_sync.
+py`). The tests marked `cuda` skip without a card; the
 CPU test holds `bundle_adjust` to the loop it ran before the graphs."""
 
 import pytest
